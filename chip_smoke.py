@@ -6,8 +6,9 @@
 Phases, each printed with its result and seconds; any failure exits
 non-zero before the final line:
 
-  1. setup: CUDA required; card name and power limit; the K1 kernel is built
-     from svscope_tpu_torch/csrc/ with nvcc.
+  1. setup: CUDA required; card name and power limit; every kernel (K1, K3,
+     K4/K5) is built from svscope_tpu_torch/csrc/ with nvcc, one process
+     per source, all at once.
   2. K1 (csrc/poa_align.cu) against its plain torch version on the card at
      (N, L, B) = (128, 64, 9), (512, 512, 64), (1024, 512, 256),
      (2048, 2048, 8): identical outputs, identical to the C++ engine's own
@@ -20,8 +21,21 @@ non-zero before the final line:
   4. the heavy tier (32 windows x 400 reads): golden 32/32, windows/s.
   5. the CLI: `python -m svscope_tpu_torch.cli localGraph --device cuda`
      on the synthetic BAM pair; Raw.bed sha256 equals the golden.
+  6. pk-parity: K3, K4 and K5 against their plain versions (and K4 against
+     K5) on operands captured from real rounds of the port's fused build:
+     the first 128 bench256 windows at rounds 1, 12 and 24, the heavy
+     windows at round 200 (ncap 3073).  Exact.
+  7. pk-time: each of K3, K4, K5 and its plain version on the bench batch
+     the port launches (128 windows, round 12), CUDA events.
+  8. bench256 through process_window_batch(device_poa="fused"): golden
+     256/256, records equal the device-POA run's, K3 and K4 launched in
+     that run, no host fallback; warm windows/s best of 3; the MSA phase
+     split of one stage-A batch; then one run with SVSCOPE_PK_FUSION=seq:
+     golden 256/256 and K5 launched.
+  9. heavy32x400 fused: golden 32/32, windows/s (one run).
+ 10. the CLI with `--device-poa fused`: Raw.bed sha256 equals the golden.
 
-Then one JSON line per kernel, the card line, and the last line
+Then one JSON line listing every kernel, the card line, and the last line
 {"ok": true, "device": {...}}.  Imports no JAX.
 """
 import hashlib
@@ -36,6 +50,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((128, 64, 9), (512, 512, 64), (1024, 512, 256), (2048, 2048, 8))
 TIME_SHAPE = (512, 512, 64)
 KERNEL_REPLACES = "svscope_tpu/ops/poa_pallas.py:117"
+PK_KERNELS = {
+    "K3": ("align_tb (K3, pk round: DP + traceback)", "poa_pk_align.cu",
+           "svscope_tpu/ops/poa_fused_kernel.py:129"),
+    "K4": ("fusion lockstep (K4, pk round: graph fusion, thread/window)",
+           "poa_pk_fusion.cu", "svscope_tpu/ops/poa_fused_kernel.py:298"),
+    "K5": ("fusion seq (K5, pk round: graph fusion, 8 windows/thread)",
+           "poa_pk_fusion.cu", "svscope_tpu/ops/poa_fused_kernel.py:438"),
+}
+PK_BENCH_ROUNDS = (0, 11, 23)      # rounds 1, 12 and 24
+PK_HEAVY_ROUND = 199               # round 200
+PK_BATCH = 128                     # stage A's chunk (PIPELINE_CHUNK)
 
 
 def phase(name, t0, msg=""):
@@ -211,11 +236,12 @@ def run_workload(name, golden, dev, device_runs, host_runs):
           f"{[round(s, 4) for s in dev_s]}), host POA "
           f"{n / min(host_s):.3f} w/s (runs "
           f"{[round(s, 4) for s in host_s]}), records device == host")
-    return launches
+    return launches, recs
 
 
-def check_cli(golden):
-    """Phase 5: the CLI on the synthetic pair, Raw.bed vs the golden."""
+def check_cli(golden, extra=(), name="cli"):
+    """Phases 5 and 10: the CLI on the synthetic pair, Raw.bed vs the
+    golden."""
     import localgraph_golden as lgg
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -230,8 +256,8 @@ def check_cli(golden):
                       if p])
         res = subprocess.run(
             [sys.executable, "-m", "svscope_tpu_torch.cli", "localGraph",
-             "--device", "cuda", "-w", bed, "-T", tumor, "-N", normal,
-             "-t", "S", "-n", "S", "-r", ref, "-s", out],
+             "--device", "cuda", *extra, "-w", bed, "-T", tumor, "-N",
+             normal, "-t", "S", "-n", "S", "-r", ref, "-s", out],
             cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
         if res.returncode != 0:
             raise RuntimeError(f"CLI failed (rc {res.returncode}):\n"
@@ -240,8 +266,224 @@ def check_cli(golden):
                   "rb") as f:
             sha = hashlib.sha256(f.read()).hexdigest()
     if sha != golden["synth_pair"]["raw_bed_sha256"]:
-        raise RuntimeError("CLI Raw.bed differs from the golden")
-    phase("cli", t0, f"Raw.bed sha256 {sha[:16]} == golden")
+        raise RuntimeError(f"{name}: CLI Raw.bed differs from the golden")
+    phase(name, t0, f"Raw.bed sha256 {sha[:16]} == golden")
+
+
+class _Captured(Exception):
+    """Stops a build once the rounds asked for are captured."""
+
+
+def capture_rounds(seq_lists, rounds, dev):
+    """Operands of both pk kernels at the given rounds of the port's own
+    fused build of `seq_lists` (one bucket): {round: (ops, state before
+    fusion, an, asx, ke)}, clones."""
+    from svscope_tpu_torch.ops import poa_fused as tpf
+    _out, groups, fallback, enc = tpf.plan_buckets(seq_lists)
+    if len(groups) != 1 or fallback:
+        raise RuntimeError(f"expected one bucket, got {list(groups)} and "
+                           f"{len(fallback)} host windows")
+    (rb, lb, nb), idxs = next(iter(groups.items()))
+    seqs, lens, nseq = tpf.chunk_arrays(idxs, enc, rb, lb)
+    caps = {}
+
+    def hook(r, ops, st, an, asx, ke):
+        if r in rounds:
+            caps[r] = ([o.clone() for o in ops], st.clone(), an.clone(),
+                       asx.clone(), ke.clone())
+            if len(caps) == len(rounds):
+                raise _Captured
+    try:
+        tpf.build_batch_pk(seqs, lens, nseq, ncap=nb + 1, device=dev,
+                           round_hook=hook)
+    except _Captured:
+        pass
+    if len(caps) != len(rounds):
+        raise RuntimeError(f"captured rounds {sorted(caps)} of {rounds}")
+    return (rb, lb, nb), caps
+
+
+def _max_err(got, want):
+    return max(int((a.long() - b.long()).abs().max()) for a, b in
+               zip(got, want))
+
+
+def pk_compare(ops, st, an, asx, ke):
+    """K3, K4, K5 against their plain versions on one round's operands, and
+    K4 against K5.  Returns {kernel: max abs error}."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = ops
+    k3 = tpk.align_tb_cuda(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff)
+    torch.cuda.synchronize()
+    p3 = tpk.align_tb_reference(charsr, sinksr, predsp, chainw, seqv, lb,
+                                nn_eff)
+    errs = {"K3": _max_err(k3, p3)}
+    if _max_err(k3, (an, asx, ke)):
+        raise RuntimeError("K3 differs from the build's own K3 output")
+    seq5 = seqv[:, 1:].contiguous()
+    out = {}
+    for name, fn, order in (("K4", tpk.fusion_cuda, "lockstep"),
+                            ("K5", tpk.fusion_cuda, "seq"),
+                            ("P4", tpk.fusion_reference, "lockstep"),
+                            ("P5", tpk.fusion_reference, "seq")):
+        s2 = st.clone()
+        path = fn(an, asx, ke, gminr, seq5, s2, order)
+        torch.cuda.synchronize()
+        out[name] = [path] + s2.tensors()
+    errs["K4"] = _max_err(out["K4"], out["P4"])
+    errs["K5"] = _max_err(out["K5"], out["P5"])
+    errs["K4-K5"] = _max_err(out["K4"], out["K5"])
+    errs["P4-P5"] = _max_err(out["P4"], out["P5"])
+    return errs
+
+
+def check_pk_kernels(dev):
+    """Phase 6: K3/K4/K5 == plain on captured real rounds.  Returns the max
+    error per kernel and the bench round-12 capture for phase 7."""
+    import localgraph_golden as lgg
+    max_err = {"K3": 0, "K4": 0, "K5": 0}
+    cases = (("bench256", PK_BATCH, PK_BENCH_ROUNDS),
+             ("heavy32x400", None, (PK_HEAVY_ROUND,)))
+    bench_cap = None
+    for name, n, rounds in cases:
+        t0 = time.perf_counter()
+        wins = lgg.make_workload(name)[:n]
+        bucket, caps = capture_rounds([w.sequences for w in wins], rounds,
+                                      dev)
+        for r in rounds:
+            ops, st, an, asx, ke = caps[r]
+            errs = pk_compare(ops, st, an, asx, ke)
+            if any(errs.values()):
+                raise RuntimeError(f"pk kernel != plain on {name} round "
+                                   f"{r + 1}: {errs}")
+            for k in max_err:
+                max_err[k] = max(max_err[k], errs[k])
+            phase("pk-parity", t0, f"{name} bucket (R, L, N)={bucket} "
+                  f"B={len(wins)} round {r + 1}: max nodes "
+                  f"{int(st.nn.max())}, K3==plain, K4==plain, K5==plain, "
+                  f"K4==K5 (errors {errs})")
+        if name == "bench256":
+            bench_cap = caps[PK_BENCH_ROUNDS[1]]
+    return max_err, bench_cap
+
+
+def cuda_ms_each(setup, fn, reps):
+    """Mean ms of fn() over reps, CUDA events around each call only
+    (setup() runs outside the timed span), after one warm-up call."""
+    import torch
+    fn(*setup())
+    total = 0.0
+    for _ in range(reps):
+        args = setup()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def time_pk_kernels(cap):
+    """Phase 7: each pk kernel and its plain version on the bench batch."""
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    t0 = time.perf_counter()
+    ops, st, an, asx, ke = cap
+    charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = ops
+    seq5 = seqv[:, 1:].contiguous()
+    k3_args = (charsr, sinksr, predsp, chainw, seqv, lb, nn_eff)
+    times = {"K3": (cuda_ms_each(lambda: k3_args, tpk.align_tb_cuda, 20),
+                    cuda_ms_each(lambda: k3_args, tpk.align_tb_reference,
+                                 2))}
+
+    def fuse_setup(order):
+        return lambda: (an, asx, ke, gminr, seq5, st.clone(), order)
+    for k, order, reps in (("K4", "lockstep", 2), ("K5", "seq", 1)):
+        times[k] = (cuda_ms_each(fuse_setup(order), tpk.fusion_cuda, 20),
+                    cuda_ms_each(fuse_setup(order), tpk.fusion_reference,
+                                 reps))
+    cells = int((nn_eff.long() * lb.long()).sum())
+    entries = int((an.shape[1] - 1 - ke.long()).sum())
+    phase("pk-time", t0, f"B={charsr.shape[0]} N={charsr.shape[1]} "
+          f"l_max={seqv.shape[1] - 1} round 12 ({cells} DP cells, "
+          f"{entries} alignment entries): " + ", ".join(
+              f"{k} kernel {a:.4f} ms plain {b:.4f} ms" for k, (a, b) in
+              times.items()))
+    return times
+
+
+def run_fused_workload(name, golden, dev, runs, device_recs=None,
+                       need=("K3", "K4")):
+    """Phases 8/9: the workload with device_poa="fused"; each kernel of
+    `need` must have launched in the run, the others not at all."""
+    import torch
+    import localgraph_golden as lgg
+    from svscope_tpu_torch.engine.localgraph import (process_window_batch,
+                                                     record_line)
+    from svscope_tpu_torch.ops import poa_fused as tpf
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    want = golden["workloads"][name]["records"]
+    wins = lgg.make_workload(name)
+
+    def run():
+        tpk.reset_launches()
+        tpf.reset_counts()
+        t = time.perf_counter()
+        recs = process_window_batch(wins, device=dev, device_poa="fused")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        same = sum(lgg.sha256(record_line(r)) == h
+                   for r, h in zip(recs, want))
+        if same != len(want) or len(recs) != len(wins):
+            raise RuntimeError(f"{name} fused: golden {same}/{len(want)}")
+        if tpf.COUNTS["fallbacks"]:
+            raise RuntimeError(f"{name} fused: {tpf.COUNTS['fallbacks']} "
+                               "windows fell back to the host engine")
+        return recs, dt, dict(tpk.LAUNCHES), dict(tpf.COUNTS)
+
+    t0 = time.perf_counter()
+    recs, cold, launches, counts = run()
+    if device_recs is not None and recs != device_recs:
+        raise RuntimeError(f"{name} fused: records differ from device POA")
+    if any((launches[k] > 0) != (k in need) for k in launches):
+        raise RuntimeError(f"{name} fused: main path launches {launches}, "
+                           f"expected {need} only")
+    phase(name + "-fused", t0, f"golden {len(want)}/{len(want)}, launches "
+          f"{launches}, counts {counts}, host fallbacks 0, run "
+          f"{cold:.3f} s ({len(wins) / cold:.3f} w/s)")
+    secs = [cold]
+    if runs > 1:
+        t0 = time.perf_counter()
+        secs = []
+        for _ in range(runs):
+            again, dt, _l, _c = run()
+            if again != recs:
+                raise RuntimeError(f"{name} fused: run not repeatable")
+            secs.append(dt)
+        phase(name + "-fused-rate", t0, f"fused POA "
+              f"{len(wins) / min(secs):.3f} w/s (runs "
+              f"{[round(x, 4) for x in secs]})")
+    return launches, recs, len(wins) / min(secs)
+
+
+def fused_phase_split(dev):
+    """Phase 8: seconds per phase of the fused build of one stage-A batch
+    (the device is synchronised at each phase boundary)."""
+    import torch
+    import localgraph_golden as lgg
+    from svscope_tpu_torch.ops import poa_fused as tpf
+    t0 = time.perf_counter()
+    jobs = [w.sequences for w in lgg.make_workload("bench256")[:PK_BATCH]]
+    timing = {}
+    tpf.reset_counts()
+    tpf.fused_msa_batch(jobs, device=dev, timing=timing)
+    torch.cuda.synchronize()
+    phase("bench256-fused-split", t0, f"stage-A batch of {len(jobs)}: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in timing.items())
+          + f"; counts {dict(tpf.COUNTS)}")
 
 
 def main():
@@ -258,32 +500,58 @@ def main():
           f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}",
           flush=True)
     from svscope_tpu_torch.ops import poa_align
-    from svscope_tpu_torch.utils.cuda_build import BUILD_LOG
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    from svscope_tpu_torch.utils.cuda_build import BUILD_LOG, load_cuda_libs
     from svscope_tpu_torch.utils.device import resolve_device
     import localgraph_golden as lgg
     dev = resolve_device("cuda")
     tb = time.perf_counter()
-    poa_align._kernel()
-    build = BUILD_LOG[poa_align.SOURCE]
-    for line in build["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip(), flush=True)
-    phase("setup", t0, f"{torch.cuda.get_device_name(0)}; K1 built in "
-          f"{build['seconds']:.2f} s (load {time.perf_counter() - tb:.2f} s)")
+    sources = (poa_align.SOURCE, *tpk.SOURCES)
+    load_cuda_libs(sources)
+    for src in sources:
+        for line in BUILD_LOG[src]["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {src}:", line.strip(), flush=True)
+    phase("setup", t0, f"{torch.cuda.get_device_name(0)}; built "
+          + ", ".join(f"{s} {BUILD_LOG[s]['seconds']:.2f} s" for s in sources)
+          + f" (all at once, {time.perf_counter() - tb:.2f} s)")
 
     max_err, k_ms, p_ms = check_kernel(dev)
     golden = lgg.load_golden()
-    launches = run_workload("bench256", golden, dev, 3, 3)
+    launches, bench_recs = run_workload("bench256", golden, dev, 3, 3)
     run_workload("heavy32x400", golden, dev, 2, 1)
     check_cli(golden)
+
+    pk_err, bench_cap = check_pk_kernels(dev)
+    pk_ms = time_pk_kernels(bench_cap)
+    del bench_cap
+    pk_launches, _recs, _ws = run_fused_workload("bench256", golden, dev, 3,
+                                                 bench_recs)
+    fused_phase_split(dev)
+    os.environ["SVSCOPE_PK_FUSION"] = "seq"
+    try:
+        seq_launches, _recs, _ws = run_fused_workload(
+            "bench256", golden, dev, 1, bench_recs, need=("K3", "K5"))
+    finally:
+        os.environ.pop("SVSCOPE_PK_FUSION")
+    pk_launches["K5"] = seq_launches["K5"]
+    run_fused_workload("heavy32x400", golden, dev, 1)
+    check_cli(golden, ("--device-poa", "fused"), "cli-fused")
     if "jax" in sys.modules:
         raise RuntimeError("jax was imported")
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "poa_align (K1, batched POA graph-vs-read NW)",
         "route": "cuda", "source": "svscope_tpu_torch/csrc/poa_align.cu",
         "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]}))
+        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]
+    for k, (name, src, replaces) in PK_KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"svscope_tpu_torch/csrc/{src}", "replaces": replaces,
+            "launches": pk_launches[k], "max_abs_err": pk_err[k],
+            "ms": pk_ms[k][0], "plain_ms": pk_ms[k][1]})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

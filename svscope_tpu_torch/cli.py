@@ -6,8 +6,10 @@ plus `--device {cuda,cpu}` (default cuda; asking for cuda without it
 raises).  `--device-poa`: omitted, bare, `pallas` or `xla` select the
 per-round device aligner (the CUDA kernel on cuda, its plain torch version
 on cpu) — except that an omitted flag on cpu keeps the host C++ engine, as
-the JAX engine does on its CPU backend; `host` selects the C++ engine.
-`fused` and `--oversize-sharded` are not ported yet and raise.
+the JAX engine does on its CPU backend; `host` selects the C++ engine;
+`fused` keeps the whole MSA build on the device (kernels K3 and K4/K5 on
+cuda, their plain torch versions on cpu).  `--oversize-sharded` is not
+ported yet and raises.
 """
 from __future__ import annotations
 
@@ -24,8 +26,6 @@ def _device_poa_arg(args):
     v = getattr(args, "device_poa", None)
     if v == "host":
         return False
-    if v == "fused":
-        raise NotImplementedError(f"--device-poa fused is {_NOT_PORTED}")
     return v
 
 
@@ -53,7 +53,8 @@ def _common_bam_args(p, window_bed=True):
                    help="POA alignment backend: 'pallas'/'xla' (or bare) = "
                         "per-read device alignment rounds with host fusion "
                         "(the CUDA kernel on --device cuda), 'host' = C++ "
-                        "engine, 'fused' = not ported yet.  Omitted = the "
+                        "engine, 'fused' = the whole MSA build on the device "
+                        "(the pk kernels on --device cuda).  Omitted = the "
                         "device aligner on cuda, host C++ on cpu")
     p.add_argument("--oversize-sharded", action="store_true",
                    help="not ported yet (raises)")

@@ -1,0 +1,49 @@
+// Shared by the two POA DP kernels, K1 (poa_align.cu) and K3
+// (poa_pk_align.cu): the scoring constants, the direction codes and the
+// block-wide max-scan that carries the in-row gap chain.
+#pragma once
+
+#include <cstdint>
+
+namespace poa_dp {
+
+constexpr int kMatch = 5;
+constexpr int kMismatch = -4;
+constexpr int kGap = -8;
+constexpr int kNeg = -(1 << 29);
+constexpr int kScanId = -(1 << 30);   // below every scanned value
+constexpr int kMaxPreds = 8;
+constexpr int kDirLeft = 16;          // 0-7 diag via slot p, 8-15 up via p
+
+__device__ __forceinline__ int warp_incl_max(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    int t = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v = max(v, t);
+  }
+  return v;
+}
+
+// Block-wide inclusive max-scan over threadIdx.x order (blockDim.x is a
+// multiple of 32).  Returns the thread's prefix max; *total gets the block
+// max.  The caller syncs before the next call reuses warp_tot.
+__device__ __forceinline__ int block_incl_max(int v, int* warp_tot,
+                                              int* total) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_incl_max(v, lane);
+  if (lane == 31) warp_tot[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    int t = lane < nw ? warp_tot[lane] : kScanId;
+    t = warp_incl_max(t, lane);
+    if (lane < nw) warp_tot[lane] = t;
+  }
+  __syncthreads();
+  if (wid > 0) v = max(v, warp_tot[wid - 1]);
+  *total = warp_tot[nw - 1];
+  return v;
+}
+
+}  // namespace poa_dp

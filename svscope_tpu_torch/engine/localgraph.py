@@ -5,7 +5,9 @@ batched for the GPU.
 Three phases per chunk of windows:
 
   A (host + device)  gates, batched POA MSA (device rounds through the
-                     CUDA aligner, C++ graph fusion), feature selection
+                     CUDA aligner with C++ graph fusion, or with
+                     device_poa="fused" the whole build on the device),
+                     feature selection
   B (device)         batched 45-slot folded EM with BIC selection
   C (host + device)  cluster labeling, batched consensus POA, records
 
@@ -215,7 +217,9 @@ def process_window_batch(wins: list[WindowData], t_label: str = "tumor",
 
     device: where the POA kernel and the EM run ("cuda" raises when CUDA
     is absent).  device_poa: None = policy (kernel on CUDA, host C++ on
-    CPU), False/"host" = host C++, True/"pallas" = device aligner.
+    CPU), False/"host" = host C++, True/"pallas" = device aligner,
+    "fused" = the whole MSA build on the device (stage A and the
+    per-cluster consensus alike).
     uniforms: the EM's random draws (see models/mixture.py).
 
     Large batches run as a two-stage pipeline: a worker thread computes

@@ -49,7 +49,8 @@ def _kernel():
     return _fn
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(name, t, dtype, shape, device):
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`."""
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -73,12 +74,12 @@ def align_batch_cuda(chars, preds, sinks, n_nodes, seqs, seq_lens,
         raise ValueError(f"seqs width {L} > l_max {l_max}")
     p8 = pad_pred_slots(preds).contiguous()
     sinks_u8 = sinks.to(torch.uint8).contiguous()
-    _check("chars", chars, torch.uint8, (B, N), dev)
-    _check("preds", p8, torch.int32, (B, N, MAX_PREDS), dev)
-    _check("sinks", sinks_u8, torch.uint8, (B, N), dev)
-    _check("n_nodes", n_nodes, torch.int32, (B,), dev)
-    _check("seqs", seqs, torch.uint8, (B, L), dev)
-    _check("seq_lens", seq_lens, torch.int32, (B,), dev)
+    check_tensor("chars", chars, torch.uint8, (B, N), dev)
+    check_tensor("preds", p8, torch.int32, (B, N, MAX_PREDS), dev)
+    check_tensor("sinks", sinks_u8, torch.uint8, (B, N), dev)
+    check_tensor("n_nodes", n_nodes, torch.int32, (B,), dev)
+    check_tensor("seqs", seqs, torch.uint8, (B, L), dev)
+    check_tensor("seq_lens", seq_lens, torch.int32, (B,), dev)
     l1 = l_max + 1
     out_len = N + l_max
     H = torch.empty((B, N + 1, l1), dtype=torch.int32, device=dev)

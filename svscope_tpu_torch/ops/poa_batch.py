@@ -1,6 +1,6 @@
 """Batched multi-window POA MSA (counterpart of svscope_tpu/ops/poa_batch.py).
 
-Two execution modes, identical results:
+Three execution modes, identical results:
 
   * host mode: the C++ engine (svscope_tpu.native.poa) aligns each
     window's reads directly, fanned out over its thread pool.
@@ -9,6 +9,8 @@ Two execution modes, identical results:
     C++ engine packs the graphs and fuses the alignments between rounds.
     On a CUDA device that call is the hand-written kernel; on the CPU it
     is the kernel's plain torch version.
+  * fused mode: the whole MSA build stays on the device
+    (ops/poa_fused.fused_msa_batch, kernels K3 and K4/K5).
 
 Windows past the largest bucket, or with a node of in-degree > 8, align
 that round on the host (`add_sequence`), as in the JAX package.
@@ -24,6 +26,7 @@ import torch
 from svscope_tpu.native.poa import (NativePoaGraph, native_available,
                                     poa_msa_batch_native, poa_native)
 from . import poa_align
+from .poa_fused import fused_msa_batch
 from .poa_device import MAX_PREDS, to_torch_packed, unpack_alignment_arrays
 
 N_LADDER = (128, 256, 512, 1024, 2048)
@@ -36,10 +39,6 @@ HOST_THREADS = min(8, os.cpu_count() or 1)
 # into sub-batches; the largest bucket (B=256, N=L=2048, ~5.4 GB) runs as
 # two calls of 204 and 52 windows.
 PLANE_BUDGET_BYTES = 4 << 30
-
-_NOT_PORTED = ("not yet ported to svscope_tpu_torch (see ROADMAP.md, "
-               "Queue A: the pk path and scale-out)")
-
 
 class _Graph(NativePoaGraph):
     """C++ POA graph that also fuses an alignment given as int32 arrays.
@@ -83,7 +82,8 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
     use_device: False/"host" = host C++ engine; True/"pallas"/"xla" =
     per-round device alignment through ops.poa_align.align_batch on
     `device` (the CUDA kernel on a CUDA device, its plain torch version on
-    the CPU); "fused" is not ported yet and raises.
+    the CPU); "fused" = the whole build on `device`
+    (ops/poa_fused.fused_msa_batch).
     Returns [(consensus, msa_rows)] per window."""
     _require_native()
     if not use_device or use_device == "host":
@@ -92,7 +92,7 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
                                         threads=threads or HOST_THREADS)
         return [poa_native(s) for s in seq_lists]
     if use_device == "fused":
-        raise NotImplementedError(f"device POA engine 'fused' {_NOT_PORTED}")
+        return fused_msa_batch(seq_lists, device=device)
     if use_device not in (True, "pallas", "xla"):
         raise ValueError(f"unknown device POA engine {use_device!r}")
     device = torch.device(device)

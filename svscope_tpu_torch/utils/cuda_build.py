@@ -1,26 +1,33 @@
 """Build a CUDA source of csrc/ into a shared library with a plain C
 interface, at first use, and load it with ctypes.
 
-Follows svscope_tpu/native/_build.py: the library is named by the source's
-content hash, so an edited source rebuilds and an unchanged one loads.
-Libraries go to svscope_tpu_torch/csrc/_build/ (listed in .gitignore).
-No fallback: a missing nvcc or a failed build raises with the cause.
+Follows svscope_tpu/native/_build.py: the library is named by a content
+hash of the source AND of every csrc/ header it includes (`#include
+"x.cuh"`, followed recursively), so an edited source or header rebuilds
+and an unchanged tree loads.  Libraries go to svscope_tpu_torch/csrc/_build/
+(listed in .gitignore).  No fallback: a missing nvcc or a failed build
+raises with the cause.  `load_cuda_libs` builds several sources at once,
+one nvcc process each.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "_build")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
+_source_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, dict] = {}    # source name -> {seconds, ptxas, lib}
 
@@ -38,21 +45,57 @@ def find_nvcc() -> str:
                        "kernels of svscope_tpu_torch cannot be built")
 
 
+def source_files(source: str, csrc: str = CSRC) -> list[str]:
+    """csrc/<source> and every file of `csrc` it includes with quotes,
+    transitively, in first-seen order.  An include that is not a file of
+    `csrc` (a system or toolkit header) is not followed."""
+    seen: list[str] = []
+    todo = [source]
+    while todo:
+        name = todo.pop(0)
+        if name in seen:
+            continue
+        path = os.path.join(csrc, name)
+        if not os.path.isfile(path):
+            if name == source:
+                raise FileNotFoundError(path)
+            continue
+        seen.append(name)
+        with open(path, "rb") as f:
+            todo.extend(m.decode() for m in _INCLUDE.findall(f.read()))
+    return seen
+
+
+def source_digest(source: str, csrc: str = CSRC) -> str:
+    """Hash of the source and its csrc/ includes (names and contents)."""
+    h = hashlib.sha256()
+    for name in source_files(source, csrc):
+        with open(os.path.join(csrc, name), "rb") as f:
+            data = f.read()
+        h.update(name.encode() + b"\0" + str(len(data)).encode() + b"\0")
+        h.update(data)
+    return h.hexdigest()[:16]
+
+
+def _source_lock(source: str) -> threading.Lock:
+    with _lock:
+        return _source_locks.setdefault(source, threading.Lock())
+
+
 def load_cuda_lib(source: str) -> ctypes.CDLL:
     """ctypes handle of csrc/<source> built for sm_90a (built if needed)."""
-    with _lock:
+    with _source_lock(source):
         if source in _loaded:
             return _loaded[source]
         src = os.path.join(CSRC, source)
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
         stem = os.path.splitext(source)[0]
-        lib = os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+        lib = os.path.join(BUILD_DIR, f"lib{stem}_{source_digest(source)}.so")
         if not os.path.exists(lib):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{lib}.{os.getpid()}.tmp"
+            tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
             cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, src]
+                   "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
+                   "-o", tmp, src]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
@@ -67,3 +110,10 @@ def load_cuda_lib(source: str) -> ctypes.CDLL:
         handle = ctypes.CDLL(lib)
         _loaded[source] = handle
         return handle
+
+
+def load_cuda_libs(sources) -> list[ctypes.CDLL]:
+    """load_cuda_lib for several sources, their nvcc builds run at once."""
+    sources = list(sources)
+    with ThreadPoolExecutor(max(1, len(sources))) as pool:
+        return list(pool.map(load_cuda_lib, sources))

@@ -86,8 +86,6 @@ def test_cli_unported_options_raise(pair_and_jax_bed, tmp_path):
             "-N", normal, "-t", "S", "-n", "S", "-r", ref, "-s",
             str(tmp_path / "o")]
     with pytest.raises(NotImplementedError):
-        cli.main(base + ["--device-poa", "fused"])
-    with pytest.raises(NotImplementedError):
         cli.main(base + ["--oversize-sharded"])
 
 

@@ -1,5 +1,6 @@
-"""Tests that need an NVIDIA GPU: the CUDA kernel K1 against its plain torch
-version, and the slice's device path, on the card.
+"""Tests that need an NVIDIA GPU: the CUDA kernels (K1; K3, K4, K5 of the
+fused pk build) against their plain torch versions, and the slice's device
+paths, on the card.
 
 Marked `cuda`; they skip without a card.  This file imports no JAX, so it
 also runs on the GPU machine, which has none (and where tests/conftest.py,
@@ -14,6 +15,8 @@ import torch
 import chip_smoke
 from svscope_tpu_torch.engine.localgraph import process_window_batch
 from svscope_tpu_torch.ops import poa_align, poa_device
+from svscope_tpu_torch.ops import poa_fused as tpf
+from svscope_tpu_torch.ops import poa_fused_kernel as tpk
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +88,67 @@ def test_slice_device_path_on_card(dev):
     recs = process_window_batch(wins, device=dev)
     assert poa_align.LAUNCHES > 0
     assert recs == process_window_batch(wins, device=dev, device_poa=False)
+
+
+@pytest.fixture(scope="module")
+def pk_rounds():
+    """Operands of the pk kernels at rounds 1, 6 and 21 of the port's
+    fused build of 8 bench windows, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from bench import make_window_payloads
+    wins = make_window_payloads(8, np.random.default_rng(6))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    _bucket, caps = chip_smoke.capture_rounds(
+        [w.sequences for w in wins], (0, 5, 20), dev)
+    return caps
+
+
+@pytest.mark.parametrize("r", [0, 5, 20])
+def test_pk_kernels_match_plain(pk_rounds, r):
+    ops, st, an, asx, ke = pk_rounds[r]
+    errs = chip_smoke.pk_compare(ops, st, an, asx, ke)
+    assert not any(errs.values()), errs
+
+
+def test_pk_kernels_count_launches_and_reject_bad_input(pk_rounds):
+    ops, st, an, asx, ke = pk_rounds[5]
+    charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = ops
+    before = dict(tpk.LAUNCHES)
+    tpk.align_tb(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff)
+    tpk.fusion(an, asx, ke, gminr, seqv[:, 1:].contiguous(), st.clone())
+    assert tpk.LAUNCHES["K3"] == before["K3"] + 1
+    assert tpk.LAUNCHES["K4"] == before["K4"] + 1
+    with pytest.raises(TypeError):
+        tpk.align_tb_cuda(charsr.long(), sinksr, predsp, chainw, seqv, lb,
+                          nn_eff)
+    with pytest.raises(ValueError):               # not contiguous
+        tpk.fusion_cuda(an, asx.t().contiguous().t(), ke, gminr,
+                        seqv[:, 1:].contiguous(), st.clone())
+
+
+def test_fused_msa_on_card_matches_host(dev):
+    from bench import make_window_payloads
+    from svscope_tpu.native.poa import poa_msa_batch_native
+    jobs = [w.sequences for w in
+            make_window_payloads(6, np.random.default_rng(7))]
+    jobs += [["ACGT", "", "AGT"], ["", "ACGTA"], ["ACGRT", "ACGT"]]
+    tpk.reset_launches()
+    tpf.reset_counts()
+    got = tpf.fused_msa_batch(jobs, device=dev)
+    assert got == poa_msa_batch_native(jobs)
+    assert tpk.LAUNCHES["K3"] > 0 and tpk.LAUNCHES["K4"] > 0
+    assert tpf.COUNTS["fallbacks"] == 1          # the IUPAC window
+
+
+def test_fused_slice_on_card(dev, monkeypatch):
+    from bench import make_window_payloads
+    wins = make_window_payloads(8, np.random.default_rng(4))
+    want = process_window_batch(wins, device=dev, device_poa=False)
+    tpk.reset_launches()
+    assert process_window_batch(wins, device=dev, device_poa="fused") == want
+    assert tpk.LAUNCHES["K3"] > 0 and tpk.LAUNCHES["K4"] > 0
+    monkeypatch.setenv("SVSCOPE_PK_FUSION", "seq")
+    tpk.reset_launches()
+    assert process_window_batch(wins, device=dev, device_poa="fused") == want
+    assert tpk.LAUNCHES["K5"] > 0 and tpk.LAUNCHES["K4"] == 0
