@@ -6,9 +6,10 @@
 Phases, each printed with its result and seconds; any failure exits
 non-zero before the final line:
 
-  1. setup: CUDA required; card name and power limit; every kernel (K1, K3,
-     K4/K5) is built from svscope_tpu_torch/csrc/ with nvcc, one process
-     per source, all at once.
+  1. setup: CUDA required; card name and power limit; every kernel (K1, K2,
+     K3, K4/K5) is built from svscope_tpu_torch/csrc/ with nvcc, one process
+     per source, all at once, beside the g++ builds of the port's three
+     host C++ engines (svscope_tpu_torch/csrc/host/).
   2. K1 (csrc/poa_align.cu) against its plain torch version on the card at
      (N, L, B) = (128, 64, 9), (512, 512, 64), (1024, 512, 256),
      (2048, 2048, 8): identical outputs, identical to the C++ engine's own
@@ -34,9 +35,32 @@ non-zero before the final line:
      golden 256/256 and K5 launched.
   9. heavy32x400 fused: golden 32/32, windows/s (one run).
  10. the CLI with `--device-poa fused`: Raw.bed sha256 equals the golden.
+ 11. k2-parity: K2 (csrc/nw_stats.cu) against its plain torch version at
+     every bucket 128 ... 4096 under both score sets (MisScore (1, 0, -1),
+     edit distance (0, -1, -1)), seeded pairs with substitutions and
+     indels plus the edge cases (both sides at the bucket edge, an empty
+     side; batches not a multiple of 8): identical; identical to the host
+     DP (every pair up to 512, 16 per larger bucket) and to the JAX golden
+     (tests/data/jax_alnfeature_golden.json).  Then misscore4096: 4,096
+     pairs of 100-4,000 bp, kernel == plain in every bucket, and
+     misscore_batch (MisScore's entry point) on the card gives the plain
+     MisScores with one K2 launch per bucket and 0 host-DP pairs.
+ 12. k2-time: K2 and its plain version per bucket of misscore4096 (CUDA
+     events), useful GCUPS = sum(la * lb) / t.
+ 13. misscore-pipe: a Raw.bed of the port's own bench256 and heavy32x400
+     records; misscore_pipe on the card (K2) gives the host DP's MisScore
+     column, K2 launched, 0 pairs sent to the host DP; pairs per bucket.
+ 14. cli-alnfeature: `AlnFeature --device cuda` on the synth pair with the
+     golden Raw.bed, then `adjustVCF`: S.Somatic.bed, RandomForestResult.tsv,
+     S.vcf, S.mergedSomatic.vcf and the adjusted VCF equal the golden
+     (without the ##fileDate line); K2 launched.
+ 15. cli-callsomaticsv: `callsomaticSV --device cuda` on the synth pair:
+     the Raw.bed and the same four files equal the golden; K2 launched.
 
-Then one JSON line listing every kernel, the card line, and the last line
-{"ok": true, "device": {...}}.  Imports no JAX.
+Then one JSON line listing every kernel with its launches on the main path,
+error, times and bound, the card line, and the last line
+{"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
+package (checked at the end).
 """
 import hashlib
 import json
@@ -45,6 +69,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((128, 64, 9), (512, 512, 64), (1024, 512, 256), (2048, 2048, 8))
@@ -61,6 +86,23 @@ PK_KERNELS = {
 PK_BENCH_ROUNDS = (0, 11, 23)      # rounds 1, 12 and 24
 PK_HEAVY_ROUND = 199               # round 200
 PK_BATCH = 128                     # stage A's chunk (PIPELINE_CHUNK)
+K2_NAME = "nw_stats (K2, batched NW alignment stats: score, matches, length)"
+K2_REPLACES = "svscope_tpu/ops/nw_pallas.py:59"
+K2_PARITY = {128: 61, 256: 61, 512: 37, 1024: 21, 2048: 17, 4096: 17}
+K2_HOST_LARGE = 16                 # host-DP subsample past the 512 bucket
+# The bound of a kernel (the least time the card could take for the same
+# work) is max(bytes / memory rate, integer ops / int32 rate) for an H100
+# SXM at 700 W: HBM3 3.35 TB/s (data sheet); int32 64 lanes per SM (half
+# the 128 fp32 lanes behind the data sheet's 67 TFLOP/s) x 132 SMs x
+# 1.98 GHz = 16.7e12 ops/s.  Integer ops counted per DP cell: K2 11 (char
+# compare, score select, 3 adds, 2 max, 2 tie compares, M and A adds); K1
+# and K3 8 per (node, column) (score select, base, gap chain, direction)
+# plus 3 per (pred edge, column) (pred-row max, diag and up compares).
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+K2_OPS_PER_CELL = 11
+POA_OPS_PER_CELL = 8
+POA_OPS_PER_EDGE_CELL = 3
 
 
 def phase(name, t0, msg=""):
@@ -80,7 +122,7 @@ def random_graph_case(N, L, B, seed):
     """B random POA graphs (native C++ engine) that pack into N nodes, and
     one read of length <= L per window."""
     import numpy as np
-    from svscope_tpu.native.poa import NativePoaGraph
+    from svscope_tpu_torch.native.poa import NativePoaGraph
     rng = np.random.default_rng(seed)
     ref_len = min(int(N * 0.6), L - L // 6 - 8)
     acgt = np.array(list("ACGT"))
@@ -125,6 +167,37 @@ def random_graph_case(N, L, B, seed):
         seqs[i, :len(s)] = np.frombuffer(s.encode(), np.uint8)
         lens[i] = len(s)
     return graphs, reads, packed, (chars, preds, sinks, nn, seqs, lens)
+
+
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the larger of moving `nbytes` at the memory
+    rate and doing `ops` integer operations at the int32 rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = ops / INT32_OPS_PER_S * 1e3
+    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def poa_ops(preds, n_nodes, seq_lens, slot0_copies=False):
+    """Integer ops of a POA DP: POA_OPS_PER_CELL per (node, column) plus
+    POA_OPS_PER_EDGE_CELL per (pred edge, column), over each window's own
+    nodes and read.  preds (B, N, 8): -1 for an empty slot, or (pk layout,
+    slot0_copies) empty slots holding slot 0's value."""
+    import torch
+    preds = torch.as_tensor(preds).long().cpu()
+    n_nodes = torch.as_tensor(n_nodes).long().cpu().reshape(-1)
+    lens = torch.as_tensor(seq_lens).long().cpu().reshape(-1)
+    live = torch.arange(preds.shape[1])[None, :] < n_nodes[:, None]
+    edge = preds >= 0
+    if slot0_copies:
+        slot = torch.arange(preds.shape[2])
+        edge = torch.where(slot > 0, preds != preds[..., :1], edge)
+    edges = (edge & live[..., None]).sum((1, 2))
+    return int((n_nodes * lens).sum()) * POA_OPS_PER_CELL \
+        + int((edges * lens).sum()) * POA_OPS_PER_EDGE_CELL
 
 
 def cuda_ms(fn, reps):
@@ -176,10 +249,14 @@ def check_kernel(dev):
     cells = float((arrs[3].astype(np.int64) * arrs[5]).sum())
     k_ms = cuda_ms(lambda: poa_align.align_batch_cuda(*args, L), 20)
     p_ms = cuda_ms(lambda: poa_device.align_batch_reference(*args, L), 3)
+    outs = poa_align.align_batch_cuda(*args, L)
+    k1_bound = bound(tensor_bytes(*args, *outs),
+                     poa_ops(arrs[1], arrs[3], arrs[5]))
     phase("k1-time", t0, f"B={B} N={N} L={L}: kernel {k_ms:.4f} ms "
           f"({cells / k_ms / 1e6:.3f} GCUPS), plain {p_ms:.4f} ms "
-          f"({cells / p_ms / 1e6:.3f} GCUPS), useful cells {int(cells)}")
-    return max_err, k_ms, p_ms
+          f"({cells / p_ms / 1e6:.3f} GCUPS), useful cells {int(cells)}, "
+          f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]})")
+    return max_err, k_ms, p_ms, k1_bound
 
 
 def run_workload(name, golden, dev, device_runs, host_runs):
@@ -407,12 +484,21 @@ def time_pk_kernels(cap):
                                  reps))
     cells = int((nn_eff.long() * lb.long()).sum())
     entries = int((an.shape[1] - 1 - ke.long()).sum())
+    bounds = {"K3": bound(tensor_bytes(*k3_args, an, asx, ke),
+                          poa_ops(predsp, nn_eff, lb, slot0_copies=True))}
+    # fusion: alignment and graph state read once, path (B, l_max) int32
+    # and graph state written once; its integer work is a few ops per entry
+    state = st.tensors()
+    fuse_bytes = tensor_bytes(an, asx, ke, gminr, seq5, *state, *state) \
+        + seq5.numel() * 4
+    bounds["K4"] = bounds["K5"] = bound(fuse_bytes, 0)
     phase("pk-time", t0, f"B={charsr.shape[0]} N={charsr.shape[1]} "
           f"l_max={seqv.shape[1] - 1} round 12 ({cells} DP cells, "
           f"{entries} alignment entries): " + ", ".join(
-              f"{k} kernel {a:.4f} ms plain {b:.4f} ms" for k, (a, b) in
+              f"{k} kernel {a:.4f} ms plain {b:.4f} ms bound "
+              f"{bounds[k][0]:.4f} ms ({bounds[k][1]})" for k, (a, b) in
               times.items()))
-    return times
+    return times, bounds
 
 
 def run_fused_workload(name, golden, dev, runs, device_recs=None,
@@ -486,6 +572,219 @@ def fused_phase_split(dev):
           + f"; counts {dict(tpf.COUNTS)}")
 
 
+def k2_pair(pairs, bucket, dev, scoring):
+    """(kernel, plain) stats (3, n) of `pairs` padded to `bucket`."""
+    import torch
+    import alnfeature_golden as ag
+    from svscope_tpu_torch.ops import nw_kernel
+    args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(pairs, bucket)]
+    k = torch.stack(nw_kernel.nw_stats_cuda(*args, bucket, *scoring)).cpu()
+    torch.cuda.synchronize()
+    p = torch.stack(nw_kernel.nw_stats_reference(*args, bucket, *scoring))
+    return k, p.cpu()
+
+
+def check_k2(dev):
+    """Phase 11: K2 == plain at every bucket and score set, == host DP on a
+    subsample, == the JAX golden; then misscore4096: kernel == plain per
+    bucket, and misscore_batch (the MisScore entry point) on the card,
+    whose K2 launches its phase line prints.  Returns the max error and
+    misscore4096's pairs grouped by bucket."""
+    import numpy as np
+    import torch
+    import alnfeature_golden as ag
+    import torch_workloads as tw
+    from svscope_tpu_torch.ops.nw import nw_align_stats
+    from svscope_tpu_torch.ops.nw_batch import bucket_of, misscore_batch
+    gold = ag.load_golden()["nw"]["buckets"]
+    max_err = 0
+    for bucket, n in K2_PARITY.items():
+        t0 = time.perf_counter()
+        pairs = tw.bucket_pairs(np.random.default_rng(1000 + bucket), bucket,
+                                n)
+        gpairs, sha = ag.nw_case(bucket)
+        if sha != gold[str(bucket)]["pairs_sha256"]:
+            raise RuntimeError(f"k2 bucket {bucket}: golden pairs differ "
+                               "(numpy drew other inputs)")
+        n_host = len(pairs) if bucket <= 512 else K2_HOST_LARGE
+        for name, sc in ag.SCORINGS.items():
+            k, p = k2_pair(pairs, bucket, dev, sc)
+            err = int((k - p).abs().max())
+            max_err = max(max_err, err)
+            if err:
+                raise RuntimeError(f"K2 != plain at bucket {bucket} {sc}")
+            host = torch.tensor([nw_align_stats(a, b, *sc)
+                                 for a, b in pairs[:n_host]],
+                                dtype=torch.int32).T
+            if not torch.equal(k[:, :n_host], host):
+                raise RuntimeError(f"K2 != host DP at bucket {bucket} {sc}")
+            kg, _ = k2_pair(gpairs, bucket, dev, sc)
+            if kg.T.tolist() != gold[str(bucket)][name]:
+                raise RuntimeError(f"K2 != JAX golden at bucket {bucket} "
+                                   f"{sc}")
+        lens = [max(len(a), len(b)) for a, b in pairs]
+        phase("k2-parity", t0, f"bucket {bucket}: {len(pairs)} pairs "
+              f"(longer side {min(lens)}-{max(lens)} bp), score sets "
+              f"{list(ag.SCORINGS.values())}: kernel==plain, ==host DP on "
+              f"{n_host}, ==JAX golden on {len(gpairs)}")
+    t0 = time.perf_counter()
+    pairs = tw.misscore4096_pairs()
+    groups = {}
+    for i, (a, b) in enumerate(pairs):
+        groups.setdefault(bucket_of(max(len(a), len(b))), []).append(i)
+    want = np.zeros(len(pairs), np.int64)
+    for bucket, idxs in sorted(groups.items()):
+        k, p = k2_pair([pairs[i] for i in idxs], bucket, dev,
+                       ag.SCORINGS["misscore"])
+        err = int((k - p).abs().max())
+        max_err = max(max_err, err)
+        if err:
+            raise RuntimeError(f"K2 != plain on misscore4096 bucket {bucket}")
+        want[idxs] = (p[2] - p[1]).numpy()
+    tm = time.perf_counter()
+    got, launches = k2_main_path("misscore4096", lambda: misscore_batch(
+        pairs, device=dev))
+    tm = time.perf_counter() - tm
+    if not np.array_equal(got, want):
+        raise RuntimeError("misscore_batch on misscore4096 != plain K2")
+    phase("k2-misscore4096", t0, f"{len(pairs)} pairs, per bucket "
+          f"{ {b: len(v) for b, v in sorted(groups.items())} }: "
+          f"kernel==plain; misscore_batch on the card {tm:.3f} s, K2 "
+          f"launches {launches}, host-DP pairs 0, == plain MisScores")
+    return max_err, pairs, groups
+
+
+def time_k2(pairs, groups, dev):
+    """Phase 12: K2 and its plain version per bucket of misscore4096.
+    Returns (kernel ms, plain ms, bound) summed over the bucket launches."""
+    import torch
+    import alnfeature_golden as ag
+    from svscope_tpu_torch.ops import nw_kernel
+    t0 = time.perf_counter()
+    rows, k_tot, p_tot, nbytes, ops = [], 0.0, 0.0, 0, 0
+    for bucket, idxs in sorted(groups.items()):
+        sub = [pairs[i] for i in idxs]
+        args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(sub, bucket)]
+        cells = sum(len(a) * len(b) for a, b in sub)
+        k_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, bucket), 5)
+        p_ms = cuda_ms(lambda: nw_kernel.nw_stats_reference(*args, bucket), 1)
+        k_tot += k_ms
+        p_tot += p_ms
+        nbytes += tensor_bytes(*args) + 3 * 4 * len(sub)
+        ops += cells * K2_OPS_PER_CELL
+        b_ms, b_by = bound(tensor_bytes(*args) + 12 * len(sub),
+                           cells * K2_OPS_PER_CELL)
+        rows.append(f"{bucket}: {len(sub)} pairs kernel {k_ms:.4f} ms "
+                    f"({cells / k_ms / 1e6:.3f} GCUPS) plain {p_ms:.4f} ms "
+                    f"bound {b_ms:.4f} ms ({b_by})")
+    k2_bound = bound(nbytes, ops)
+    phase("k2-time", t0, "misscore4096 per bucket: " + "; ".join(rows)
+          + f"; all buckets kernel {k_tot:.4f} ms plain {p_tot:.4f} ms bound "
+          f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), "
+          f"{ops / K2_OPS_PER_CELL / k_tot / 1e6:.3f} GCUPS")
+    return k_tot, p_tot, k2_bound
+
+
+def k2_main_path(name, fn):
+    """Run fn() with K2's launch count and the host-DP count set to 0 just
+    before; returns (fn's result, K2 launches).  Fails unless K2 launched
+    and no pair went to the host DP."""
+    import torch
+    from svscope_tpu_torch.ops import nw_batch, nw_kernel
+    nw_kernel.reset_launches()
+    nw_batch.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches, host_dp = nw_kernel.LAUNCHES, nw_batch.COUNTS["host_dp_pairs"]
+    if launches <= 0:
+        raise RuntimeError(f"{name}: the main path launched no K2")
+    if host_dp:
+        raise RuntimeError(f"{name}: {host_dp} pairs went to the host DP")
+    return out, launches
+
+
+def check_misscore_pipe(records, dev):
+    """Phase 13: misscore_pipe on the card (K2) == on the host (DP) over a
+    Raw.bed of the port's own records.  Returns K2's launches."""
+    import localgraph_golden as lgg
+    from svscope_tpu_torch.engine.features import misscore_pipe
+    from svscope_tpu_torch.ops.nw_batch import bucket_of
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        bed = os.path.join(d, "Raw.bed")
+        with open(bed, "w") as f:
+            f.write("".join(lgg.record_line(r) + "\n" for r in records))
+        th = time.perf_counter()
+        host = misscore_pipe(bed, device="cpu")
+        th = time.perf_counter() - th
+        td = time.perf_counter()
+        got, launches = k2_main_path("misscore-pipe",
+                                     lambda: misscore_pipe(bed, device=dev))
+        td = time.perf_counter() - td
+    if not got.equals(host):
+        raise RuntimeError("misscore-pipe: card MisScore != host DP")
+    per_bucket = {}
+    for r in records:
+        if r[9] == "NormalOutput|EMOutput":
+            for a in str(r[3]).split(";"):
+                for b in str(r[6]).split(";"):
+                    k = bucket_of(max(len(a), len(b)))
+                    per_bucket[k] = per_bucket.get(k, 0) + 1
+    phase("misscore-pipe", t0, f"{len(records)} records, {len(got)} "
+          f"EMOutput rows, pairs per bucket {dict(sorted(per_bucket.items()))}"
+          f": MisScore card == host DP, K2 launches {launches}, host-DP "
+          f"pairs 0; card {td:.3f} s, host DP {th:.3f} s")
+    return launches
+
+
+def check_aln_cli(dev):
+    """Phases 14 and 15: AlnFeature + adjustVCF, and callsomaticSV, on the
+    card against the JAX golden.  Returns K2's launches."""
+    import alnfeature_golden as ag
+    g = ag.load_golden()["synth_pair"]
+    total = 0
+    t0 = time.perf_counter()
+    out, launches = k2_main_path("cli-alnfeature", lambda: ag.port_aln_outputs(
+        g["raw_bed"], dev.type))
+    bad = [k for k, v in g["outputs"].items() if out.get(k) != v]
+    if bad:
+        raise RuntimeError(f"cli-alnfeature: {bad} differ from the golden")
+    total += launches
+    phase("cli-alnfeature", t0, f"{sorted(out)} == golden, K2 launches "
+          f"{launches}")
+    t0 = time.perf_counter()
+    out, launches = k2_main_path("cli-callsomaticsv",
+                                 lambda: ag.port_call_somatic_outputs(
+                                     dev.type))
+    want = dict(g["outputs"], **{ag.RAW_BED: g["raw_bed"]})
+    bad = [k for k in out if out[k] != want[k]]
+    if bad:
+        raise RuntimeError(f"cli-callsomaticsv: {bad} differ from the golden")
+    total += launches
+    phase("cli-callsomaticsv", t0, f"{sorted(out)} == golden, K2 launches "
+          f"{launches}")
+    return total
+
+
+def build_all():
+    """Every CUDA kernel (nvcc, one process per source) and the three host
+    C++ engines (g++), all at once.  Returns the sources and wall seconds."""
+    from svscope_tpu_torch.native import ensure_libpoa, hcluster
+    from svscope_tpu_torch.native import bam as native_bam
+    from svscope_tpu_torch.ops import nw_kernel, poa_align
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    from svscope_tpu_torch.utils.cuda_build import load_cuda_libs
+    t0 = time.perf_counter()
+    sources = (poa_align.SOURCE, *tpk.SOURCES, nw_kernel.SOURCE)
+    host = (ensure_libpoa, hcluster.ensure_lib, native_bam.lib)
+    with ThreadPoolExecutor(len(host) + 1) as pool:
+        jobs = [pool.submit(load_cuda_libs, sources)]
+        jobs += [pool.submit(f) for f in host]
+        for j in jobs:
+            j.result()
+    return sources, time.perf_counter() - t0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -499,31 +798,27 @@ def main():
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda} devices {torch.cuda.device_count()}",
           flush=True)
-    from svscope_tpu_torch.ops import poa_align
-    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
-    from svscope_tpu_torch.utils.cuda_build import BUILD_LOG, load_cuda_libs
+    from svscope_tpu_torch.utils.cuda_build import BUILD_LOG
     from svscope_tpu_torch.utils.device import resolve_device
     import localgraph_golden as lgg
     dev = resolve_device("cuda")
-    tb = time.perf_counter()
-    sources = (poa_align.SOURCE, *tpk.SOURCES)
-    load_cuda_libs(sources)
+    sources, build_s = build_all()
     for src in sources:
         for line in BUILD_LOG[src]["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {src}:", line.strip(), flush=True)
     phase("setup", t0, f"{torch.cuda.get_device_name(0)}; built "
           + ", ".join(f"{s} {BUILD_LOG[s]['seconds']:.2f} s" for s in sources)
-          + f" (all at once, {time.perf_counter() - tb:.2f} s)")
+          + f" and the host C++ engines (all at once, {build_s:.2f} s)")
 
-    max_err, k_ms, p_ms = check_kernel(dev)
+    max_err, k_ms, p_ms, k1_bound = check_kernel(dev)
     golden = lgg.load_golden()
     launches, bench_recs = run_workload("bench256", golden, dev, 3, 3)
-    run_workload("heavy32x400", golden, dev, 2, 1)
+    _l, heavy_recs = run_workload("heavy32x400", golden, dev, 2, 1)
     check_cli(golden)
 
     pk_err, bench_cap = check_pk_kernels(dev)
-    pk_ms = time_pk_kernels(bench_cap)
+    pk_ms, pk_bounds = time_pk_kernels(bench_cap)
     del bench_cap
     pk_launches, _recs, _ws = run_fused_workload("bench256", golden, dev, 3,
                                                  bench_recs)
@@ -537,20 +832,36 @@ def main():
     pk_launches["K5"] = seq_launches["K5"]
     run_fused_workload("heavy32x400", golden, dev, 1)
     check_cli(golden, ("--device-poa", "fused"), "cli-fused")
-    if "jax" in sys.modules:
-        raise RuntimeError("jax was imported")
 
-    kernels = [{
-        "name": "poa_align (K1, batched POA graph-vs-read NW)",
-        "route": "cuda", "source": "svscope_tpu_torch/csrc/poa_align.cu",
-        "replaces": KERNEL_REPLACES, "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}]
+    k2_err, k2_pairs, k2_groups = check_k2(dev)
+    k2_ms, k2_plain_ms, k2_bound = time_k2(k2_pairs, k2_groups, dev)
+    # K2's launches on its main path: MisScore of a Raw.bed, then the two
+    # CLI runs (each counted from 0 just before it).
+    k2_launches = check_misscore_pipe(bench_recs + heavy_recs, dev)
+    k2_launches += check_aln_cli(dev)
+
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "svscope_tpu"))
+    if imported:
+        raise RuntimeError(f"imported the JAX package or JAX: {imported[:8]}")
+
+    def row(name, src, replaces, n, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"svscope_tpu_torch/csrc/{src}",
+                "replaces": replaces, "launches": n, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                "bound_by": bnd[1], "library_ms": None}
+    # library_ms is null for every kernel: no single PyTorch call computes
+    # a POA alignment, a POA graph fusion or NW alignment statistics.
+    kernels = [row("poa_align (K1, batched POA graph-vs-read NW)",
+                   "poa_align.cu", KERNEL_REPLACES, launches, max_err, k_ms,
+                   p_ms, k1_bound)]
     for k, (name, src, replaces) in PK_KERNELS.items():
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"svscope_tpu_torch/csrc/{src}", "replaces": replaces,
-            "launches": pk_launches[k], "max_abs_err": pk_err[k],
-            "ms": pk_ms[k][0], "plain_ms": pk_ms[k][1]})
+        kernels.append(row(name, src, replaces, pk_launches[k], pk_err[k],
+                           pk_ms[k][0], pk_ms[k][1], pk_bounds[k]))
+    kernels.append(row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches,
+                       k2_err, k2_ms, k2_plain_ms, k2_bound))
+    print(f"[total] {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,27 @@
 The JAX package `svscope_tpu` stays the reference; this package mirrors its
 layout so each module's counterpart is easy to find:
 
-  utils/   device resolution and dtype map (replaces utils/jaxcfg.py)
-  ops/     the POA aligner: plain torch version (poa_device.py), the
-           hand-written CUDA kernel's wrapper (poa_align.py, source in
-           csrc/poa_align.cu) and the batched multi-window MSA driver
-           (poa_batch.py)
-  models/  the 45-slot folded EM with BIC model selection (mixture.py)
-  engine/  per-window decision and the localGraph driver
-  cli.py   the `localGraph` subcommand
+  io/      BAM/BGZF/FASTA readers and writers (copies)
+  native/  ctypes bindings of the host C++ engines, whose sources are the
+           port's own copies in csrc/host/ (POA, BAM scan, Ward clustering),
+           built with g++ at first use into csrc/_build/
+  utils/   device resolution (replaces utils/jaxcfg.py), the nvcc build,
+           sequence and interval helpers (copies)
+  ops/     the POA aligners (K1, and K3/K4/K5 of the fused build), the NW
+           alignment statistics (K2, nw_kernel.py / nw_batch.py) and the
+           NumPy oracles (poa.py, nw.py); kernels in csrc/*.cu, each with
+           its plain torch version
+  models/  the 45-slot folded EM (mixture.py) and the random forest
+           (forest.py, with its own copy of the artifact)
+  engine/  window payloads, per-window decision, the localGraph engine and
+           the AlnFeature stage (features.py)
+  out/     VCF emission, merge and adjustment (copies)
+  cli.py   the `localGraph`, `AlnFeature`, `callsomaticSV` and `adjustVCF`
+           subcommands
 
-The port imports `torch` and never `jax`.  JAX-free modules of
-`svscope_tpu` (io, native, engine.datamaker, utils.seq, ops.poa) are
-imported unchanged.
+The port imports `torch` and never `jax`, and nothing of `svscope_tpu`: the
+modules of the JAX package that never import JAX are copied here, and only
+their imports changed.
 """
 
 __version__ = "0.1.0"

@@ -11,10 +11,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from svscope_tpu.engine.datamaker import WindowData
-from svscope_tpu.native.poa import poa_native
-from svscope_tpu.utils import seq as sq
 from ..models.mixture import em_cluster_batch
+from ..native.poa import poa_native
+from ..utils import seq as sq
+from .datamaker import WindowData
 
 
 def call_margin(msa_row0: str, flank_5: str, flank_3: str) -> np.ndarray:

@@ -30,13 +30,13 @@ import time
 import numpy as np
 import torch
 
-from svscope_tpu.engine.datamaker import WindowData, data_maker, data_maker2
-from svscope_tpu.io.bam import BamReader
-from svscope_tpu.io.fasta import FastaFile
-from svscope_tpu.utils import seq as sq
+from ..io.bam import BamReader
+from ..io.fasta import FastaFile
 from ..models.mixture import em_cluster_batch_dispatch
 from ..ops.poa_batch import poa_msa_batch
+from ..utils import seq as sq
 from ..utils.device import resolve_device
+from .datamaker import WindowData, data_maker, data_maker2
 from .decision import call_margin, decision, dup_rescue, find_non_same_site
 
 log = logging.getLogger("svscope_tpu_torch.localgraph")
@@ -56,7 +56,7 @@ def open_bam(path: str):
     """Lazy native-backed BAM reader (columns in C++, sequences decoded per
     fetch); the pure-Python reader when the native one cannot open it."""
     try:
-        from svscope_tpu.native.bam import LazyBamReader
+        from ..native.bam import LazyBamReader
         return LazyBamReader(path)
     except Exception as exc:
         log.warning("native lazy BAM reader failed (%s); Python reader",

@@ -89,14 +89,14 @@ def _bucket(x: int, ladder=SHAPE_LADDER):
 
 def ward_cut_many(sims: list[np.ndarray], kmax: int) -> list[np.ndarray]:
     """Ward-cut init labels through the native C++ kernel
-    (svscope_tpu/native/hcluster.cpp).  No NumPy fallback: a load failure
+    (csrc/host/hcluster.cpp).  No NumPy fallback: a load failure
     raises with its cause."""
     try:
-        from svscope_tpu.native.hcluster import ward_cut_batch
+        from ..native.hcluster import ward_cut_batch
         return ward_cut_batch(sims, kmax)
     except (ImportError, OSError) as exc:
-        raise RuntimeError("native Ward kernel (svscope_tpu/native/"
-                           f"hcluster) cannot load: {exc!r}") from exc
+        raise RuntimeError("native Ward kernel (csrc/host/hcluster.cpp) "
+                           f"cannot load: {exc!r}") from exc
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,7 @@
 
 Three execution modes, identical results:
 
-  * host mode: the C++ engine (svscope_tpu.native.poa) aligns each
+  * host mode: the C++ engine (native/poa.py) aligns each
     window's reads directly, fanned out over its thread pool.
   * device mode: round r aligns the r-th read of EVERY window in one
     `ops.poa_align.align_batch` call per (node bucket, length bucket); the
@@ -23,8 +23,8 @@ import os
 import numpy as np
 import torch
 
-from svscope_tpu.native.poa import (NativePoaGraph, native_available,
-                                    poa_msa_batch_native, poa_native)
+from ..native.poa import (NativePoaGraph, native_available,
+                          poa_msa_batch_native, poa_native)
 from . import poa_align
 from .poa_fused import fused_msa_batch
 from .poa_device import MAX_PREDS, to_torch_packed, unpack_alignment_arrays
@@ -65,13 +65,13 @@ def _bucket(x, ladder):
 
 def _require_native():
     if not native_available():
-        from svscope_tpu.native.poa import lib
+        from ..native.poa import lib
         try:
             lib()
         except Exception as exc:           # report the loader's own cause
-            raise RuntimeError("native C++ POA engine (svscope_tpu/native) "
+            raise RuntimeError("native C++ POA engine (csrc/host/poa_engine.cpp) "
                                f"cannot load: {exc!r}") from exc
-        raise RuntimeError("native C++ POA engine (svscope_tpu/native) "
+        raise RuntimeError("native C++ POA engine (csrc/host/poa_engine.cpp) "
                            "cannot load")
 
 

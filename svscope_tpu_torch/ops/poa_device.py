@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from svscope_tpu.ops.poa import PoaGraph
+from .poa import PoaGraph
 
 MATCH = 5
 MISMATCH = -4

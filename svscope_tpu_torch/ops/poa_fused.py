@@ -452,7 +452,7 @@ def fused_msa_batch(seq_lists: list[list[str]], device="cpu",
     build on `device` (K3 and K4/K5 on a CUDA device, their plain versions
     on the CPU).  Returns [(consensus, msa_rows)] per window, identical to
     ops.poa.poa and the host C++ engine."""
-    from svscope_tpu.native.poa import poa_msa_batch_native, poa_native
+    from ..native.poa import poa_msa_batch_native, poa_native
     out, groups, fallback, encoded = plan_buckets(seq_lists)
     for (rb, lb, nb), idxs in groups.items():
         ncap = nb + 1

@@ -5,7 +5,8 @@ sha256 of every record the JAX engine (svscope_tpu, host C++ POA, float32
 EM) emits, as the tab-joined Raw.bed line, plus the sha256 of the whole
 Raw.bed that JAX `run_local_graph` writes for `synth.make_test_pair`.  The
 window payloads are rebuilt from the recorded arguments of
-`bench.make_window_payloads`; `payload_sha256` fingerprints them, so a
+`bench.make_window_payloads` (drawn by the port's copy in
+tests/torch_workloads.py); `payload_sha256` fingerprints them, so a
 machine whose numpy draws other payloads is told so instead of failing on
 the records.
 
@@ -43,16 +44,26 @@ def record_line(record) -> str:
     return "\t".join(str(x) for x in record)
 
 
-def make_workload(name: str):
-    """Window payloads of a golden workload (JAX-free)."""
+def _helpers():
+    for p in (REPO, HERE):
+        if p not in sys.path:
+            sys.path.insert(0, p)
+    import torch_workloads
+    return torch_workloads
+
+
+def _draw(make_window_payloads, name: str):
     import numpy as np
-    if REPO not in sys.path:
-        sys.path.insert(0, REPO)
-    from bench import make_window_payloads
     w = WORKLOADS[name]
     return make_window_payloads(w["n"], np.random.default_rng(w["seed"]),
                                 n_reads=w["n_reads"],
                                 ins_carriers=w["ins_carriers"])
+
+
+def make_workload(name: str):
+    """Window payloads of a golden workload (free of the JAX package: the
+    port's copy of bench.make_window_payloads)."""
+    return _draw(_helpers().make_window_payloads, name)
 
 
 def payload_sha256(wins) -> str:
@@ -67,12 +78,20 @@ def payload_sha256(wins) -> str:
 
 def make_synth_pair(tmpdir: str):
     """(ref_path, tumor_bam, normal_bam, window_records) of the synth
-    pair (JAX-free)."""
-    if HERE not in sys.path:
-        sys.path.insert(0, HERE)
-    from synth import make_test_pair
-    ref, tumor, normal, recs, _ = make_test_pair(tmpdir, seed=SYNTH["seed"])
+    pair (free of the JAX package: the port's copy of
+    synth.make_test_pair)."""
+    ref, tumor, normal, recs, _ = _helpers().make_test_pair(
+        tmpdir, seed=SYNTH["seed"])
     return ref, tumor, normal, recs
+
+
+def bench_workload(name: str):
+    """Window payloads of a golden workload drawn by bench.py itself (the
+    JAX package's WindowData)."""
+    if REPO not in sys.path:
+        sys.path.insert(0, REPO)
+    from bench import make_window_payloads
+    return _draw(make_window_payloads, name)
 
 
 def jax_workload_records(name: str) -> list[str]:
@@ -80,23 +99,30 @@ def jax_workload_records(name: str) -> list[str]:
     from svscope_tpu.engine.localgraph import process_window_batch
     from svscope_tpu.parallel.dataparallel import set_data_mesh
     set_data_mesh(None)
-    recs = process_window_batch(make_workload(name), device_poa=False)
+    recs = process_window_batch(bench_workload(name), device_poa=False)
     return [sha256(record_line(r)) for r in recs]
 
 
-def jax_synth_raw_bed_sha() -> str:
+def jax_synth_raw_bed(tmpdir: str) -> str:
+    """Path of the Raw.bed that JAX run_local_graph writes for the synth
+    pair (written by tests/synth.py) under `tmpdir`."""
     from svscope_tpu.engine.localgraph import run_local_graph
     from svscope_tpu.parallel.dataparallel import set_data_mesh
+    if HERE not in sys.path:
+        sys.path.insert(0, HERE)
+    from synth import make_test_pair
+    ref, tumor, normal, recs, _ = make_test_pair(tmpdir, seed=SYNTH["seed"])
+    try:
+        return run_local_graph(recs, ref, [tumor], [normal], SYNTH["t_ids"],
+                               SYNTH["n_ids"], os.path.join(tmpdir, "out"),
+                               offset=SYNTH["offset"])
+    finally:
+        set_data_mesh(None)
+
+
+def jax_synth_raw_bed_sha() -> str:
     with tempfile.TemporaryDirectory() as d:
-        ref, tumor, normal, recs = make_synth_pair(d)
-        try:
-            out = run_local_graph(recs, ref, [tumor], [normal],
-                                  SYNTH["t_ids"], SYNTH["n_ids"],
-                                  os.path.join(d, "out"),
-                                  offset=SYNTH["offset"])
-        finally:
-            set_data_mesh(None)
-        with open(out, "rb") as f:
+        with open(jax_synth_raw_bed(d), "rb") as f:
             return hashlib.sha256(f.read()).hexdigest()
 
 

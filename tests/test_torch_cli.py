@@ -35,8 +35,8 @@ def pair_and_jax_bed(tmp_path_factory):
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
-        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
-                  if p])
+        [REPO, os.path.join(REPO, "tests")]
+        + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
     return env
 
 
@@ -90,11 +90,13 @@ def test_cli_unported_options_raise(pair_and_jax_bed, tmp_path):
 
 
 def test_port_never_imports_jax():
-    """Block jax, import every module of the port, run a 4-window batch
-    through the device-POA path (plain kernel version on the CPU)."""
+    """Block jax and the JAX package, import every module of the port, run
+    a 4-window batch through the device-POA path (plain kernel version on
+    the CPU)."""
     script = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["svscope_tpu"] = None
         import numpy as np
         import torch
         torch.set_num_threads(1)
@@ -104,7 +106,7 @@ def test_port_never_imports_jax():
         for name in names:
             importlib.import_module(name)
         assert "svscope_tpu_torch.ops.poa_align" in names
-        from bench import make_window_payloads
+        from torch_workloads import make_window_payloads
         from svscope_tpu_torch.engine.localgraph import process_window_batch
         wins = make_window_payloads(4, np.random.default_rng(3))
         recs = process_window_batch(wins, device_poa=True, device="cpu")

@@ -1,6 +1,6 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (K1; K3, K4, K5 of the
-fused pk build) against their plain torch versions, and the slice's device
-paths, on the card.
+fused pk build; K2 of the MisScore path) against their plain torch
+versions, and the slices' device paths, on the card.
 
 Marked `cuda`; they skip without a card.  This file imports no JAX, so it
 also runs on the GPU machine, which has none (and where tests/conftest.py,
@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
+import alnfeature_golden as ag
 import chip_smoke
+import torch_workloads as tw
 from svscope_tpu_torch.engine.localgraph import process_window_batch
+from svscope_tpu_torch.ops import nw, nw_batch, nw_kernel
 from svscope_tpu_torch.ops import poa_align, poa_device
 from svscope_tpu_torch.ops import poa_fused as tpf
 from svscope_tpu_torch.ops import poa_fused_kernel as tpk
@@ -82,7 +85,7 @@ def test_kernel_rejects_bad_input(dev):
 
 
 def test_slice_device_path_on_card(dev):
-    from bench import make_window_payloads
+    from torch_workloads import make_window_payloads
     wins = make_window_payloads(8, np.random.default_rng(4))
     poa_align.reset_launches()
     recs = process_window_batch(wins, device=dev)
@@ -96,7 +99,7 @@ def pk_rounds():
     fused build of 8 bench windows, on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
-    from bench import make_window_payloads
+    from torch_workloads import make_window_payloads
     wins = make_window_payloads(8, np.random.default_rng(6))
     dev = torch.device("cuda", torch.cuda.current_device())
     _bucket, caps = chip_smoke.capture_rounds(
@@ -128,7 +131,7 @@ def test_pk_kernels_count_launches_and_reject_bad_input(pk_rounds):
 
 
 def test_fused_msa_on_card_matches_host(dev):
-    from bench import make_window_payloads
+    from torch_workloads import make_window_payloads
     from svscope_tpu.native.poa import poa_msa_batch_native
     jobs = [w.sequences for w in
             make_window_payloads(6, np.random.default_rng(7))]
@@ -142,7 +145,7 @@ def test_fused_msa_on_card_matches_host(dev):
 
 
 def test_fused_slice_on_card(dev, monkeypatch):
-    from bench import make_window_payloads
+    from torch_workloads import make_window_payloads
     wins = make_window_payloads(8, np.random.default_rng(4))
     want = process_window_batch(wins, device=dev, device_poa=False)
     tpk.reset_launches()
@@ -152,3 +155,44 @@ def test_fused_slice_on_card(dev, monkeypatch):
     tpk.reset_launches()
     assert process_window_batch(wins, device=dev, device_poa="fused") == want
     assert tpk.LAUNCHES["K5"] > 0 and tpk.LAUNCHES["K4"] == 0
+
+
+@pytest.mark.parametrize("bucket", [128, 512, 4096])
+def test_k2_matches_plain_and_host(dev, bucket):
+    """Kernel == plain under both score sets, with the bucket-edge and
+    empty-side pairs and a batch that is not a multiple of 8; == the host
+    DP on the first pairs."""
+    pairs = tw.bucket_pairs(np.random.default_rng(bucket), bucket, 13)
+    for sc in ag.SCORINGS.values():
+        k, p = chip_smoke.k2_pair(pairs, bucket, dev, sc)
+        assert torch.equal(k, p)
+        assert k[:, :4].T.tolist() == [list(nw.nw_align_stats(a, b, *sc))
+                                        for a, b in pairs[:4]]
+
+
+def test_k2_counts_launches_and_rejects_bad_input(dev):
+    args = [torch.from_numpy(x).to(dev)
+            for x in ag.pad_pairs([("ACGT", "AGT"), ("", "A")], 128)]
+    nw_kernel.reset_launches()
+    nw_kernel.nw_stats(*args, 128)
+    assert nw_kernel.LAUNCHES == 1
+    with pytest.raises(ValueError):
+        nw_kernel.nw_stats_cuda(*args, 256)          # width != l_max
+    with pytest.raises(TypeError):
+        nw_kernel.nw_stats_cuda(args[0], args[1], args[2].long(), args[3],
+                                128)
+    with pytest.raises(ValueError):
+        nw_kernel.nw_stats_cuda(*args, 8192)          # shared memory
+
+
+def test_misscore_batch_on_card(dev):
+    rng = np.random.default_rng(8)
+    pairs = [p for b in (128, 1024, 4096) for p in tw.bucket_pairs(rng, b, 3)]
+    pairs.append((tw.rand_seq(rng, 4100), tw.rand_seq(rng, 20)))
+    nw_kernel.reset_launches()
+    nw_batch.reset_counts()
+    got = nw_batch.misscore_batch(pairs, device=dev)
+    assert nw_kernel.LAUNCHES == 3
+    assert nw_batch.COUNTS["host_dp_pairs"] == 1
+    assert got.tolist() == nw_batch.misscore_batch(pairs, device="cpu") \
+        .tolist()
