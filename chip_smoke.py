@@ -6,10 +6,11 @@
 Phases, each printed with its result and seconds; any failure exits
 non-zero before the final line:
 
-  1. setup: CUDA required; card name and power limit; every kernel (K1, K2,
-     K3, K4/K5) is built from svscope_tpu_torch/csrc/ with nvcc, one process
-     per source, all at once, beside the g++ builds of the port's three
-     host C++ engines (svscope_tpu_torch/csrc/host/).
+  1. setup: CUDA required; card name and power limit; every kernel (K1 and
+     K1-int16, K2, K3, K4/K5, the three probes) is built from
+     svscope_tpu_torch/csrc/ with nvcc, one process per source, all at
+     once, beside the g++ builds of the port's three host C++ engines
+     (svscope_tpu_torch/csrc/host/).
   2. K1 (csrc/poa_align.cu) against its plain torch version on the card at
      (N, L, B) = (128, 64, 9), (512, 512, 64), (1024, 512, 256),
      (2048, 2048, 8): identical outputs, identical to the C++ engine's own
@@ -56,9 +57,26 @@ non-zero before the final line:
      (without the ##fileDate line); K2 launched.
  15. cli-callsomaticsv: `callsomaticSV --device cuda` on the synth pair:
      the Raw.bed and the same four files equal the golden; K2 launched.
+ 16. k1-int16-parity: K1-int16 (poa_align.cu, int16_mode) at the SHAPES
+     with N, L <= 1024: kernel == plain int16 == K1 int32 on every output
+     (every window has a sink), == the C++ engine's own alignment.
+ 17. k1-int16-bounds: a divergent 500 bp read against a 500-node chain, the
+     ceiling N = l_max = 1024, a window with no sink (score -20000, the
+     rest == K1 int32) and N = 2048 (ValueError).
+ 18. attached-bench (k1-int16-time): svscope_tpu_torch.tools.attached_bench's
+     main on the card, K1-int16's main path (its launches counted from 0):
+     K1 int32, K1-int16 and their plain versions on the tool's per-round
+     workload (B=64, N=L=512), the kernels' calls queued ahead of the
+     device (CUDA events, tools/timing.py).
+ 19-21. row-probe, fusebody-probe, int16-probe: every variant or op of the
+     three probes, kernel == plain at the tool's own shapes; then each
+     tool's main on the card (the probes' main path, launches counted from
+     0), which times every variant against its plain version, the
+     kernels' calls queued ahead of the device.
 
 Then one JSON line listing every kernel with its launches on the main path,
-error, times and bound, the card line, and the last line
+error, times and bound (a probe's row: the sums over its variants, which
+it lists under "variants"), the card line, and the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
 package (checked at the end).
 """
@@ -89,6 +107,18 @@ PK_BATCH = 128                     # stage A's chunk (PIPELINE_CHUNK)
 K2_NAME = "nw_stats (K2, batched NW alignment stats: score, matches, length)"
 K2_REPLACES = "svscope_tpu/ops/nw_pallas.py:59"
 K2_PARITY = {128: 61, 256: 61, 512: 37, 1024: 21, 2048: 17, 4096: 17}
+K1_16_NAME = "poa_align int16 (K1-int16, int16 H plane, sentinel -20000)"
+K1_16_REPLACES = "svscope_tpu/ops/poa_pallas.py:117"
+INT16_MAX = 1024
+ATTACHED_B = 64
+PROBES = {
+    "row": ("row probe (K1's row loop, part by part)", "probe_row.cu",
+            "tools/probe/row_probe.py:100"),
+    "fusebody": ("fusion-body probe (K4's fusion body on replayed states)",
+                 "probe_fusebody.cu", "tools/probe/fusebody_probe.py:232"),
+    "int16": ("int16 op probe (int16 ops and packed s16x2 intrinsics)",
+              "probe_int16.cu", "tools/probe/int16_mosaic_probe.py:58"),
+}
 K2_HOST_LARGE = 16                 # host-DP subsample past the 512 bucket
 # The bound of a kernel (the least time the card could take for the same
 # work) is max(bytes / memory rate, integer ops / int32 rate) for an H100
@@ -98,11 +128,19 @@ K2_HOST_LARGE = 16                 # host-DP subsample past the 512 bucket
 # compare, score select, 3 adds, 2 max, 2 tie compares, M and A adds); K1
 # and K3 8 per (node, column) (score select, base, gap chain, direction)
 # plus 3 per (pred edge, column) (pred-row max, diag and up compares).
+# K1-int16's DP ops (max, add, compare, select on int16 values) run at the
+# packed s16x2 rate, two per int32 lane (VIMNMX.S16x2, the DPX
+# __viaddmax_s16x2 and __vimax3_s16x2 that the int16 probe checks).
+# The row probe's ops per (row, column): loop and store 1 (the add), pfx
+# and chmask 2 (add, scan max), row POA_OPS_PER_CELL.  The fusion-body and
+# int16 probes are counted by bytes only (a few ops per entry or element).
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT16X2_OPS_PER_S = 2 * INT32_OPS_PER_S
 K2_OPS_PER_CELL = 11
 POA_OPS_PER_CELL = 8
 POA_OPS_PER_EDGE_CELL = 3
+ROW_PROBE_OPS = {"loop": 1, "store": 1, "pfx": 2, "chmask": 2, "row": 8}
 
 
 def phase(name, t0, msg=""):
@@ -169,11 +207,11 @@ def random_graph_case(N, L, B, seed):
     return graphs, reads, packed, (chars, preds, sinks, nn, seqs, lens)
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of moving `nbytes` at the memory
-    rate and doing `ops` integer operations at the int32 rate."""
+    rate and doing `ops` integer operations at `ops_per_s`."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / INT32_OPS_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -201,17 +239,11 @@ def poa_ops(preds, n_nodes, seq_lens, slot0_copies=False):
 
 
 def cuda_ms(fn, reps):
+    """Mean ms of fn() over reps calls after a warm-up (CUDA events)."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    from svscope_tpu_torch.tools.timing import time_call
+    return time_call(fn, torch.device("cuda", torch.cuda.current_device()),
+                     reps, queued=False)
 
 
 def check_kernel(dev):
@@ -766,6 +798,269 @@ def check_aln_cli(dev):
     return total
 
 
+def k1_int16_outputs(args, L):
+    """(K1-int16, plain int16, K1 int32) outputs on one batch, int64 on the
+    host; these launches compare, they are not K1-int16's main path."""
+    import torch
+    from svscope_tpu_torch.ops import poa_align, poa_device
+    k16 = poa_align.align_batch_cuda(*args, L, int16_mode=True)
+    k32 = poa_align.align_batch_cuda(*args, L)
+    torch.cuda.synchronize()
+    p16 = poa_device.align_batch_reference(*args, L, int16_mode=True)
+    return [[t.cpu().long() for t in out] for out in (k16, p16, k32)]
+
+
+def divergent_case(B=16):
+    """A divergent 500 bp read against a 500-node chain (N = L = 512): the
+    most negative scores the int16 gate leaves room for."""
+    import numpy as np
+    from svscope_tpu_torch.native.poa import NativePoaGraph
+    rng = np.random.default_rng(29)
+    acgt = np.array(list("ACGT"))
+    ref = "".join(rng.choice(acgt, 500))
+    read = "".join(rng.choice(acgt, 500))
+    g = NativePoaGraph()
+    g.add_sequence(ref)
+    p = g.pack(512, 8)
+    seqs = np.zeros((B, 512), np.uint8)
+    seqs[:, :len(read)] = np.frombuffer(read.encode(), np.uint8)
+    arrs = (np.stack([p[0]] * B), np.stack([p[1]] * B),
+            np.stack([p[2]] * B), np.full(B, p[3], np.int32), seqs,
+            np.full(B, len(read), np.int32))
+    return [g] * B, [read] * B, [p] * B, arrs
+
+
+def check_k1_int16(dev):
+    """Phases 16 and 17: K1-int16 == plain int16 == K1 int32 == native, and
+    the int16 score bounds.  Returns the max error (kernel vs plain)."""
+    import numpy as np
+    from svscope_tpu_torch.ops import poa_align, poa_device
+    from svscope_tpu_torch.ops.poa_device import NEG, NEG16
+    max_err = 0
+
+    def compare(name, graphs, reads, packed, arrs, L):
+        nonlocal max_err
+        args = poa_device.to_torch_packed(*arrs, dev)
+        k16, p16, k32 = k1_int16_outputs(args, L)
+        err = _max_err(k16, p16)
+        max_err = max(max_err, err)
+        if err or _max_err(k16, k32):
+            raise RuntimeError(f"{name}: K1-int16 != plain int16 or != K1 "
+                               f"int32 (kernel vs plain error {err})")
+        for i, g in enumerate(graphs):
+            aln = poa_device.unpack_alignment(k16[0][i], k16[1][i],
+                                              k16[2][i], packed[i][4])
+            if aln != g.align_only(reads[i]):
+                raise RuntimeError(f"{name}: K1-int16 != native engine, "
+                                   f"window {i}")
+        return k16
+    for N, L, B in SHAPES:
+        if N > INT16_MAX or L > INT16_MAX:
+            continue
+        t0 = time.perf_counter()
+        compare(f"N={N} L={L} B={B}",
+                *random_graph_case(N, L, B, seed=N + B), L)
+        phase("k1-int16-parity", t0, f"N={N} L={L} B={B}: kernel==plain=="
+              "K1 int32==native")
+    t0 = time.perf_counter()
+    k16 = compare("divergent read", *divergent_case(), 512)
+    low = int(k16[3].min())
+    graphs, reads, packed, arrs = random_graph_case(INT16_MAX, INT16_MAX, 8,
+                                                    seed=11)
+    compare("ceiling", graphs, reads, packed, arrs, INT16_MAX)
+    sinks = arrs[2].copy()
+    sinks[0] = False
+    args = poa_device.to_torch_packed(arrs[0], arrs[1], sinks, *arrs[3:],
+                                      dev)
+    k16, p16, k32 = k1_int16_outputs(args, INT16_MAX)
+    max_err = max(max_err, _max_err(k16, p16))
+    if _max_err(k16, p16) or k16[3][0] != NEG16 or k32[3][0] != NEG:
+        raise RuntimeError("no-sink window: K1-int16 score "
+                           f"{k16[3][0]} (want {NEG16}) or != plain")
+    k32[3][0] = NEG16
+    if _max_err(k16, k32):
+        raise RuntimeError("no-sink window: K1-int16 != K1 int32")
+    big = poa_device.to_torch_packed(
+        np.zeros((2, 2048), np.uint8), np.full((2, 2048, 8), -1, np.int32),
+        np.zeros((2, 2048), bool), np.full(2, 4, np.int32),
+        np.zeros((2, 8), np.uint8), np.full(2, 4, np.int32), dev)
+    try:
+        poa_align.align_batch(*big, 8, int16_mode=True)
+    except ValueError:
+        pass
+    else:
+        raise RuntimeError("K1-int16 took N=2048 (the gate is 1024)")
+    phase("k1-int16-bounds", t0, f"divergent 500 bp read vs 500-node chain "
+          f"(lowest score {low}), N=L={INT16_MAX} B=8 (max nodes "
+          f"{int(arrs[3].max())}): kernel==plain==K1 int32==native; no-sink "
+          f"window scores {NEG16}; N=2048 raises ValueError")
+    return max_err
+
+
+def run_attached_bench():
+    """Phase 18: the attached_bench tool's main on the card, K1-int16's main
+    path: K1 int32, K1-int16 and their plain versions on its per-round
+    workload (B=64, N=L=512).  Returns K1-int16's launches in it, its ms,
+    the plain int16 ms and K1-int16's bound."""
+    import numpy as np
+    import torch
+    from svscope_tpu_torch.ops import poa_align
+    from svscope_tpu_torch.tools import attached_bench as tab
+    t0 = time.perf_counter()
+    poa_align.reset_launches()
+    res = tab.main(["--device", "cuda", "--b", str(ATTACHED_B), "--reps",
+                    "32"])
+    torch.cuda.synchronize()
+    launches = poa_align.LAUNCHES16
+    if launches <= 0:
+        raise RuntimeError("attached-bench: K1-int16 never launched")
+    chars, preds, sinks, nn, seqs, lens, N, L = tab.build_round_workload(
+        ATTACHED_B, np.random.default_rng(0))
+    B = len(nn)
+    # inputs read once; an, asp (B, N + L) and k_end, score (B,) written
+    nbytes = sum(a.nbytes for a in (chars, preds, sinks, nn, seqs, lens)) \
+        + 4 * B * (2 * (N + L) + 2)
+    bnd = bound(nbytes, poa_ops(preds, nn, lens), INT16X2_OPS_PER_S)
+    k16, p16 = res["align_batch int16"], res["align_batch_reference int16"]
+    cells = float((nn.astype(np.int64) * lens).sum())
+    phase("attached-bench", t0, "ms/call " + ", ".join(
+        f"{k} {v:.4f}" for k, v in res.items()) + f"; K1-int16 "
+        f"{cells / k16 / 1e6:.3f} GCUPS, bound {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"H plane {poa_align.plane_bytes(B, N, L, True)} B int16 vs "
+        f"{poa_align.plane_bytes(B, N, L)} B int32 (with the direction "
+        f"plane); launches K1-int16 {launches}, K1 {poa_align.LAUNCHES}")
+    return launches, k16, p16, bnd
+
+
+def probe_main_path(name, mod, argv):
+    """Run a probe tool's main on the card with its launch counts set to 0
+    just before; fails unless every variant launched.  Returns (main's
+    results, launches per variant)."""
+    import torch
+    mod.reset_launches()
+    res = mod.main(argv)
+    torch.cuda.synchronize()
+    launches = dict(mod.LAUNCHES)
+    if any(n <= 0 for n in launches.values()):
+        raise RuntimeError(f"{name}: main path launches {launches}")
+    return res, launches
+
+
+def probe_summary(res, launches, bounds, libraries=None):
+    """A probe's `kernels` entry numbers: sums over its variants, and the
+    per-variant rows."""
+    libraries = libraries or {}
+    rows = [{"name": v, "launches": launches[v], "max_abs_err":
+             r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": bounds[v][0], "bound_by": bounds[v][1],
+             "library_ms": libraries.get(v)} for v, r in res.items()]
+    return {"launches": sum(launches.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "variants": rows}
+
+
+def check_row_probe(dev):
+    """Phase 19: every row-probe variant, kernel == plain (B=256); then the
+    tool's main on the card."""
+    import torch
+    from svscope_tpu_torch.tools.probe import row_probe as rp
+    t0 = time.perf_counter()
+    b = rp.B
+    chars, seqs = rp.make_inputs(b, dev)
+    errs = {}
+    for v in rp.VARIANTS:
+        k = rp.row_probe_cuda(chars, seqs, v)
+        torch.cuda.synchronize()
+        errs[v] = _max_err([k], [rp.row_probe_reference(chars, seqs, v)])
+    if any(errs.values()):
+        raise RuntimeError(f"row probe kernel != plain: {errs}")
+    phase("row-probe-parity", t0, f"B={b}, variants {list(rp.VARIANTS)}: "
+          f"kernel==plain (errors {errs})")
+    t0 = time.perf_counter()
+    res, launches = probe_main_path("row-probe", rp, ["--device", "cuda"])
+    cells = b * rp.NROWS * rp.L1
+    io = tensor_bytes(chars, seqs) + b * rp.L1 * 4
+    bounds = {v: bound(io, cells * ROW_PROBE_OPS[v]) for v in res}
+    out = probe_summary(res, launches, bounds)
+    out["bound"] = bound(io * len(res), cells * sum(ROW_PROBE_OPS[v]
+                                                    for v in res))
+    phase("row-probe", t0, "us/row " + ", ".join(
+        f"{v} {r['ms'] * 1e3 / rp.NROWS:.4f}" for v, r in res.items())
+        + f"; launches {launches}")
+    return out
+
+
+def check_fusebody_probe(dev):
+    """Phase 20: every fusion-body variant, kernel == plain on the replayed
+    round-13 states (nn_out, path, the whole state); then the tool's
+    main."""
+    import torch
+    from svscope_tpu_torch.tools.probe import fusebody_probe as fp
+    t0 = time.perf_counter()
+    *ops, st0 = fp.device_inputs(fp.build_states(), dev)
+    k0 = fp.OUT_LEN - fp.STEPS
+    errs, nbytes = {}, {}
+    for v in fp.VARIANTS:
+        sk, sp = st0.clone(), st0.clone()
+        k = [*fp.fusebody_cuda(v, *ops, sk, k0), *sk.tensors()]
+        torch.cuda.synchronize()
+        p = [*fp.fusebody_reference(v, *ops, sp, k0), *sp.tensors()]
+        errs[v] = _max_err(k, p)
+        nbytes[v] = fp.variant_bytes(v, st0, sk, k0)
+    if any(errs.values()):
+        raise RuntimeError(f"fusion-body probe kernel != plain: {errs}")
+    phase("fusebody-probe-parity", t0, f"{fp.W} windows x {fp.STEPS} "
+          f"entries, variants {list(fp.VARIANTS)}: kernel==plain (errors "
+          f"{errs})")
+    t0 = time.perf_counter()
+    res, launches = probe_main_path("fusebody-probe", fp,
+                                    ["--device", "cuda"])
+    bounds = {v: bound(nbytes[v], 0) for v in res}
+    out = probe_summary(res, launches, bounds)
+    out["bound"] = bound(sum(nbytes[v] for v in res), 0)
+    phase("fusebody-probe", t0, "us/step " + ", ".join(
+        f"{v} {r['ms'] * 1e3 / fp.STEPS:.4f}" for v, r in res.items())
+        + f"; launches {launches}")
+    return out
+
+
+def check_int16_probe(dev):
+    """Phase 21: every int16 op, kernel == plain on the large arrays; then
+    the tool's main (its OK/FAIL lines and timings)."""
+    import torch
+    from svscope_tpu_torch.tools.probe import int16_probe as ip
+    t0 = time.perf_counter()
+    rows = 262144
+    big = ip.large_inputs(rows, dev)
+    errs = {}
+    for op in ip.ALL_OPS:
+        k = ip.int16_op_cuda(op, *big)
+        torch.cuda.synchronize()
+        errs[op] = _max_err([k], [ip.int16_op_reference(op, *big)])
+    if any(errs.values()):
+        raise RuntimeError(f"int16 probe kernel != plain: {errs}")
+    phase("int16-probe-parity", t0, f"({rows}, {ip.WIDTH}) int16, ops "
+          f"{list(ip.ALL_OPS)}: kernel==plain (errors {errs})")
+    t0 = time.perf_counter()
+    res, launches = probe_main_path("int16-probe", ip,
+                                    ["--device", "cuda", "--rows", str(rows)])
+    bad = [op for op, r in res.items() if not r["ok"]]
+    if bad:
+        raise RuntimeError(f"int16 probe: FAIL for {bad}")
+    bounds = {op: bound(ip.op_bytes(op, rows), 0) for op in res}
+    # library_ms: torch.maximum for max16, torch.roll for roll16; no single
+    # PyTorch call computes the other ops (or the sweep as a whole)
+    out = probe_summary(res, launches, bounds,
+                        {op: r["library_ms"] for op, r in res.items()})
+    out["bound"] = bound(sum(ip.op_bytes(op, rows) for op in res), 0)
+    phase("int16-probe", t0, "ms " + ", ".join(
+        f"{op} {r['ms']:.4f}" for op, r in res.items())
+        + f"; all OK; launches {launches}")
+    return out
+
+
 def build_all():
     """Every CUDA kernel (nvcc, one process per source) and the three host
     C++ engines (g++), all at once.  Returns the sources and wall seconds."""
@@ -773,9 +1068,12 @@ def build_all():
     from svscope_tpu_torch.native import bam as native_bam
     from svscope_tpu_torch.ops import nw_kernel, poa_align
     from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    from svscope_tpu_torch.tools.probe import (fusebody_probe, int16_probe,
+                                               row_probe)
     from svscope_tpu_torch.utils.cuda_build import load_cuda_libs
     t0 = time.perf_counter()
-    sources = (poa_align.SOURCE, *tpk.SOURCES, nw_kernel.SOURCE)
+    sources = (poa_align.SOURCE, *tpk.SOURCES, nw_kernel.SOURCE,
+               row_probe.SOURCE, fusebody_probe.SOURCE, int16_probe.SOURCE)
     host = (ensure_libpoa, hcluster.ensure_lib, native_bam.lib)
     with ThreadPoolExecutor(len(host) + 1) as pool:
         jobs = [pool.submit(load_cuda_libs, sources)]
@@ -840,6 +1138,12 @@ def main():
     k2_launches = check_misscore_pipe(bench_recs + heavy_recs, dev)
     k2_launches += check_aln_cli(dev)
 
+    k16_err = check_k1_int16(dev)
+    k16_launches, k16_ms, k16_plain_ms, k16_bound = run_attached_bench()
+    probes = {"row": check_row_probe(dev),
+              "fusebody": check_fusebody_probe(dev),
+              "int16": check_int16_probe(dev)}
+
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "svscope_tpu"))
     if imported:
@@ -851,16 +1155,26 @@ def main():
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": None}
-    # library_ms is null for every kernel: no single PyTorch call computes
-    # a POA alignment, a POA graph fusion or NW alignment statistics.
+    # library_ms is null for K1-K5: no single PyTorch call computes a POA
+    # alignment, a POA graph fusion or NW alignment statistics; null for
+    # each probe as a whole (its variants list the int16 probe's
+    # torch.maximum and torch.roll beside max16 and roll16).
     kernels = [row("poa_align (K1, batched POA graph-vs-read NW)",
                    "poa_align.cu", KERNEL_REPLACES, launches, max_err, k_ms,
-                   p_ms, k1_bound)]
+                   p_ms, k1_bound),
+               row(K1_16_NAME, "poa_align.cu", K1_16_REPLACES, k16_launches,
+                   k16_err, k16_ms, k16_plain_ms, k16_bound)]
     for k, (name, src, replaces) in PK_KERNELS.items():
         kernels.append(row(name, src, replaces, pk_launches[k], pk_err[k],
                            pk_ms[k][0], pk_ms[k][1], pk_bounds[k]))
     kernels.append(row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches,
                        k2_err, k2_ms, k2_plain_ms, k2_bound))
+    for k, (name, src, replaces) in PROBES.items():
+        p = probes[k]
+        entry = row(name, src, replaces, p["launches"], p["max_abs_err"],
+                    p["ms"], p["plain_ms"], p["bound"])
+        entry["variants"] = p["variants"]
+        kernels.append(entry)
     print(f"[total] {time.perf_counter() - t0:.3f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

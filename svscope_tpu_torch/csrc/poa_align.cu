@@ -30,6 +30,21 @@
 // from L2 (chain rows reuse the previous row kept in shared memory).  The
 // traceback is one thread's dependent walk of <= N + L direction reads.
 // The windows of a batch fill the SMs; nothing else is parallel.
+//
+// K1-int16 (poa_align16_launch) replaces the same TPU kernel's int16 variant
+// (svscope_tpu/ops/poa_pallas.py:54-60, :329-331, int16_mode): the kernel is
+// templated on the storage type of the H plane and the two shared rows
+// (int16_t) and on the sentinel (NEG16 = -20000); the arithmetic and the
+// max-scan stay in int32 registers (kScanId below every scanned value).
+// The caller gates N, l_max <= 1024: every legal H value is then
+// >= -8 * (N + l_max) >= -16384 > NEG16, every stored value lies in
+// [NEG16, 5 * l_max] (a masked cell is set to the sentinel, the gap chain
+// keeps it there), and the outputs equal the int32 kernel's except the score
+// of a window with no valid sink, which is NEG16.  Storing int16 halves the
+// H plane's bytes (B=256, N=1024, L=512: ~269 MB instead of ~538 MB) and
+// its traffic through L2; the row loop stays barrier-bound, so the time
+// should change little.  The TPU variant's 16 windows per grid step filled
+// the (16, 128) int16 tile; here a window is a CTA either way.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,6 +55,10 @@ namespace {
 
 using namespace poa_dp;
 
+constexpr int kNeg16 = -20000;         // K1-int16's sentinel
+
+// HT: storage type of the H plane and the shared rows; Neg: the sentinel.
+template <typename HT, int Neg>
 __global__ void __launch_bounds__(1024)
 poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
                  const int32_t* __restrict__ preds,     // (B, N, 8), -1 empty
@@ -47,7 +66,7 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
                  const int32_t* __restrict__ n_nodes,   // (B,)
                  const uint8_t* __restrict__ seqs,      // (B, L)
                  const int32_t* __restrict__ seq_lens,  // (B,)
-                 int32_t* __restrict__ H,               // (B, N+1, l1)
+                 HT* __restrict__ H,                    // (B, N+1, l1)
                  int8_t* __restrict__ D,                // (B, N, l1)
                  int32_t* __restrict__ an,              // (B, out_len)
                  int32_t* __restrict__ asp,             // (B, out_len)
@@ -56,9 +75,12 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
                  int N, int L, int l_max) {
   extern __shared__ int smem[];
   const int l1 = l_max + 1;
-  int* prev = smem;              // row i-1, then row i once computed
-  int* mp = smem + l1;           // predecessor max row
-  int* warp_tot = smem + 2 * l1; // 32 scan partials
+  HT* prev = reinterpret_cast<HT*>(smem);  // row i-1, then row i
+  HT* mp = prev + l1;            // predecessor max row
+  // Scan partials in static shared memory: with them at a fixed address
+  // K1-int16 ran fastest of the placements tried (before or after the
+  // rows), and K1 as fast as with its rows-first layout of PR 1.
+  __shared__ int warp_tot[32];
   __shared__ int s_rows[kMaxPreds];
   __shared__ int s_slot[kMaxPreds];
   __shared__ int s_np;
@@ -73,16 +95,16 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
   const uint8_t* chb = chars + (size_t)b * N;
   const uint8_t* skb = sinks + (size_t)b * N;
   const int32_t* pb = preds + (size_t)b * N * kMaxPreds;
-  int32_t* Hb = H + (size_t)b * (N + 1) * l1;
+  HT* Hb = H + (size_t)b * (N + 1) * l1;
   int8_t* Db = D + (size_t)b * N * l1;
 
   for (int j = tid; j < l1; j += T) {
-    const int v = j <= lb ? kGap * j : kNeg;
+    const HT v = (HT)(j <= lb ? kGap * j : Neg);
     prev[j] = v;
     Hb[j] = v;
   }
   // best sink: only the thread owning column lb ever updates these
-  int bval = kNeg;
+  int bval = Neg;
   int brank = 0;
 
   for (int r = 0; r < nn; ++r) {
@@ -117,7 +139,7 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
         const int v = row == i - 1 ? prev[j] : Hb[(size_t)row * l1 + j];
         m = max(m, v);
       }
-      mp[j] = m;
+      mp[j] = (HT)m;
     }
     __syncthreads();
 
@@ -131,10 +153,10 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
         int base = up;
         if (j > 0) {
           const int diag = j <= lb
-              ? mp[j - 1] + (seq[j - 1] == ch ? kMatch : kMismatch) : kNeg;
+              ? mp[j - 1] + (seq[j - 1] == ch ? kMatch : kMismatch) : Neg;
           base = max(diag, up);
         }
-        if (j > lb) base = kNeg;
+        if (j > lb) base = Neg;
         x = base - kGap * j;
       }
       int tot;
@@ -142,7 +164,7 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
       s = max(s, carry);
       carry = max(carry, tot);
       if (j < l1) {
-        const int h = s + kGap * j;
+        const HT h = (HT)(s + kGap * j);
         prev[j] = h;
         Hb[(size_t)i * l1 + j] = h;
       }
@@ -164,7 +186,7 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
         }
       } else {
         for (int s = 0; s < np; ++s) {
-          const int32_t* Hr = Hb + (size_t)s_rows[s] * l1;
+          const HT* Hr = Hb + (size_t)s_rows[s] * l1;
           if (dd < 0 && jv && h == Hr[j - 1] + sub) dd = s_slot[s];
           if (du < 0 && h == Hr[j] + kGap) du = s_slot[s];
         }
@@ -215,22 +237,46 @@ poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
   }
 }
 
+template <typename HT, int Neg>
+int launch(const void* chars, const void* preds, const void* sinks,
+           const void* n_nodes, const void* seqs, const void* seq_lens,
+           void* H, void* D, void* an, void* asp, void* k_end, void* score,
+           int B, int N, int L, int l_max, int threads, void* stream) {
+  if (B <= 0) return 0;
+  const size_t smem = 2 * (size_t)(l_max + 1) * sizeof(HT);
+  poa_align_kernel<HT, Neg><<<B, threads, smem, (cudaStream_t)stream>>>(
+      (const uint8_t*)chars, (const int32_t*)preds, (const uint8_t*)sinks,
+      (const int32_t*)n_nodes, (const uint8_t*)seqs,
+      (const int32_t*)seq_lens, (HT*)H, (int8_t*)D, (int32_t*)an,
+      (int32_t*)asp, (int32_t*)k_end, (int32_t*)score, N, L, l_max);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Launches on `stream`, does not
-// synchronise, allocates nothing; returns cudaGetLastError() of the launch.
+// Plain C entry points (bound with ctypes).  Each launches on `stream`, does
+// not synchronise, allocates nothing; returns cudaGetLastError() of the
+// launch.  poa_align_launch: H int32, sentinel NEG; poa_align16_launch:
+// H int16, sentinel NEG16 (the caller keeps N, l_max <= 1024).
 extern "C" int poa_align_launch(const void* chars, const void* preds,
                                 const void* sinks, const void* n_nodes,
                                 const void* seqs, const void* seq_lens,
                                 void* H, void* D, void* an, void* asp,
                                 void* k_end, void* score, int B, int N,
                                 int L, int l_max, int threads, void* stream) {
-  if (B <= 0) return 0;
-  const size_t smem = (size_t)(2 * (l_max + 1) + 32) * sizeof(int);
-  poa_align_kernel<<<B, threads, smem, (cudaStream_t)stream>>>(
-      (const uint8_t*)chars, (const int32_t*)preds, (const uint8_t*)sinks,
-      (const int32_t*)n_nodes, (const uint8_t*)seqs,
-      (const int32_t*)seq_lens, (int32_t*)H, (int8_t*)D, (int32_t*)an,
-      (int32_t*)asp, (int32_t*)k_end, (int32_t*)score, N, L, l_max);
-  return (int)cudaGetLastError();
+  return launch<int32_t, kNeg>(chars, preds, sinks, n_nodes, seqs, seq_lens,
+                               H, D, an, asp, k_end, score, B, N, L, l_max,
+                               threads, stream);
+}
+
+extern "C" int poa_align16_launch(const void* chars, const void* preds,
+                                  const void* sinks, const void* n_nodes,
+                                  const void* seqs, const void* seq_lens,
+                                  void* H, void* D, void* an, void* asp,
+                                  void* k_end, void* score, int B, int N,
+                                  int L, int l_max, int threads,
+                                  void* stream) {
+  return launch<int16_t, kNeg16>(chars, preds, sinks, n_nodes, seqs,
+                                 seq_lens, H, D, an, asp, k_end, score, B, N,
+                                 L, l_max, threads, stream);
 }

@@ -18,6 +18,10 @@ svscope_tpu/ops/poa_pallas.py::_poa_kernel and native/poa_engine.cpp:
     (NEG, rank 0); traceback from (brank+1, seq_len) into right-aligned
     (node_rank, seq_pos) pairs, -1 = gap, -2 = pad.
 
+`int16_mode=True` is the counterpart of K1's int16 variant
+(`align_batch_pallas(..., int16_mode=True)`): H stored in int16, sentinel
+NEG16, N and l_max at most 1024.
+
 The row loop runs in Python over the batch; the traceback is batched over
 windows (one loop of at most N + L steps).
 """
@@ -32,6 +36,8 @@ MATCH = 5
 MISMATCH = -4
 GAP = -8
 NEG = -(2 ** 29)
+NEG16 = -20000          # int16 sentinel (svscope_tpu/ops/poa_pallas.py:57)
+INT16_MAX_SHAPE = 1024  # int16 mode: N, l_max <= 1024
 MAX_PREDS = 8
 DIR_LEFT = 16
 
@@ -84,25 +90,52 @@ def pad_pred_slots(preds: torch.Tensor) -> torch.Tensor:
     return torch.cat([preds.to(torch.int32), pad], dim=2)
 
 
+def check_int16_shape(n_max: int, l_max: int) -> None:
+    """Raise ValueError where int16 mode cannot hold the scores: a legal H
+    value is >= -8 * (n_max + l_max) >= -16384 only up to 1024 each."""
+    if n_max > INT16_MAX_SHAPE or l_max > INT16_MAX_SHAPE:
+        raise ValueError(f"int16 mode needs N, l_max <= {INT16_MAX_SHAPE} "
+                         f"(got {n_max}, {l_max})")
+
+
 def _shift_right(v: torch.Tensor, fill: int) -> torch.Tensor:
     """v[..., j-1] at column j, `fill` at column 0."""
     return torch.nn.functional.pad(v[..., :-1], (1, 0), value=fill)
 
 
 def align_batch_reference(chars, preds, sinks, n_nodes, seqs, seq_lens,
-                          l_max: int):
+                          l_max: int, int16_mode: bool = False):
     """Plain torch K1: same contract as
     svscope_tpu.ops.poa_pallas.align_batch_pallas.
 
     chars (B, N) uint8; preds (B, N, P<=8) int32 (-1 empty); sinks (B, N)
     bool; n_nodes (B,); seqs (B, L<=l_max) uint8; seq_lens (B,).
     Returns (aln_nodes, aln_spos, k_end, score): (B, N + l_max) int32 twice,
-    then (B,) int32 twice, on the inputs' device."""
+    then (B,) int32 twice, on the inputs' device.
+
+    int16_mode: the H plane is int16 and the sentinel NEG16; N or l_max past
+    1024 raises ValueError before anything runs.  A window with no valid
+    sink scores NEG16 (the int32 mode: NEG).  Rows are computed in int32
+    and masked with `torch.where` (an additive mask would wrap in int16),
+    so every stored value lies in [NEG16, 5 * l_max].  The outputs cannot
+    differ from JAX's int16 kernel, nor from the int32 mode apart from
+    that score: every value the traceback and the best sink read (columns
+    0..seq_len of the window's own ranks, their pred rows and the virtual
+    row) is a legal score >= -8 * (N + l_max) >= -16384 > NEG16, so no
+    sentinel floor binds there and the arithmetic is the int32 one; a
+    valid sink always beats the start value NEG16.  Columns past seq_len
+    hold other values than the TPU kernel's (it floors them at NEG16 - 8j
+    through its prefix-max fill) and than the int32 mode's; no traceback
+    step, direction or best sink reads them."""
     dev = chars.device
     B, N = chars.shape
     L = seqs.shape[1]
+    if int16_mode:
+        check_int16_shape(N, l_max)
     if L > l_max:
         raise ValueError(f"seqs width {L} > l_max {l_max}")
+    neg = NEG16 if int16_mode else NEG
+    hdt = torch.int16 if int16_mode else torch.int32
     l1 = l_max + 1
     p8 = pad_pred_slots(preds)
     # empty slots -> slot 0's rank (after which every slot is a valid
@@ -121,14 +154,12 @@ def align_batch_reference(chars, preds, sinks, n_nodes, seqs, seq_lens,
     seq_sh[:, 1:L + 1] = seqs.to(i32)
     jvalid = (j >= 1) & (j <= lb)                     # (B, l1)
     in_seq = j <= lb
-    # additive masks: a masked cell is pushed below NEG instead of set to
-    # it; H is unchanged (the gap chain takes its max from cells <= seq_len
-    # and column 0 is never masked), and so are the directions
-    vmask = torch.where(jvalid, 0, NEG).to(i32)
-    smask = torch.where(in_seq, 0, NEG).to(i32)
-    # rows a window never computes are never read (see below)
-    H = torch.empty((B, N + 1, l1), dtype=i32, device=dev)
-    H[:, 0] = torch.where(in_seq, decay, NEG)
+    # masked cells are set to the sentinel: column 0 is never masked, so
+    # the gap chain takes its max from cells <= seq_len, and valid rows
+    # never drop below g*(N+L+1) > neg, so h matches no masked diag.
+    # Rows a window never computes are never read (see below).
+    H = torch.empty((B, N + 1, l1), dtype=hdt, device=dev)
+    H[:, 0] = torch.where(in_seq, decay, neg)
     Hf = H.view(B * (N + 1), l1)
     D = torch.empty((B, N, l1), dtype=torch.int8, device=dev)
     bidx = torch.arange(B, device=dev)
@@ -142,21 +173,20 @@ def align_batch_reference(chars, preds, sinks, n_nodes, seqs, seq_lens,
     n_rows = int(nn.max()) if B else 0
     # Rows past a window's own n_nodes are computed but never read: valid
     # ranks only have valid preds, the traceback treats them as left moves
-    # and they are no sinks.  Valid rows never drop below g*(N+L+1), far
-    # above the masked cells, so h matches no masked diag.
+    # and they are no sinks.
     for r in range(n_rows):
         k = int(deg[r])
         if k == 1:
-            mp = Hf.index_select(0, rowflat[:, r, 0])    # (B, l1)
+            mp = Hf.index_select(0, rowflat[:, r, 0]).to(i32)    # (B, l1)
         else:
             V = Hf.index_select(0, rowflat[:, r, :k].reshape(-1)).view(
-                B, k, l1)
+                B, k, l1).to(i32)
             mp = V.amax(dim=1)
         sub = subf.index_select(0, subrow[:, r])
-        diag = _shift_right(mp, 0) + sub + vmask
+        diag = torch.where(jvalid, _shift_right(mp, 0) + sub, neg)
         up = mp + GAP
         # diag is masked at j = 0, so max(diag, up) is up there
-        base = torch.maximum(diag, up) + smask
+        base = torch.where(in_seq, torch.maximum(diag, up), neg)
         h = torch.cummax(base - decay, dim=1).values + decay
         H[:, r + 1] = h
         if k == 1:
@@ -165,20 +195,22 @@ def align_batch_reference(chars, preds, sinks, n_nodes, seqs, seq_lens,
             # lowest matching slot wins
             hk = h[:, None]
             slot = slots[:k, None]
-            dslot = torch.where((hk == _shift_right(V, NEG) + sub[:, None])
+            dslot = torch.where((hk == _shift_right(V, neg) + sub[:, None])
                                 & jvalid[:, None], slot, DIR_LEFT).amin(1)
             uslot = torch.where(hk == V + GAP, slot + 8, DIR_LEFT).amin(1)
             code = torch.where(dslot < DIR_LEFT, dslot, uslot)
         D[:, r] = code.to(torch.int8)
     # best sink at column seq_len: the first rank holding the max over
     # valid sinks, if that max beats NEG (== strict > in rank order)
+    # (in int16 mode from (NEG16, 0): a window with no valid sink scores
+    # NEG16)
     ranks = torch.arange(N, device=dev)
-    ends = H[:, 1:].gather(2, lb[:, :, None].expand(B, N, 1))[..., 0]
+    ends = H[:, 1:].gather(2, lb[:, :, None].expand(B, N, 1))[..., 0].to(i32)
     ends = torch.where(sinks.bool() & (ranks[None, :] < nn[:, None]), ends,
-                       NEG)
+                       neg)
     bval = ends.amax(dim=1)
     first = torch.where(ends == bval[:, None], ranks[None, :], N).amin(dim=1)
-    brank = torch.where(bval > NEG, first, 0)
+    brank = torch.where(bval > neg, first, 0)
 
     # batched traceback: finished windows write to a dump column (out_len)
     out_len = N + l_max

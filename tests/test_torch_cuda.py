@@ -1,6 +1,7 @@
-"""Tests that need an NVIDIA GPU: the CUDA kernels (K1; K3, K4, K5 of the
-fused pk build; K2 of the MisScore path) against their plain torch
-versions, and the slices' device paths, on the card.
+"""Tests that need an NVIDIA GPU: the CUDA kernels (K1 and K1-int16; K3,
+K4, K5 of the fused pk build; K2 of the MisScore path; the row,
+fusion-body and int16 probes) against their plain torch versions, and the
+slices' device paths and the measurement tools, on the card.
 
 Marked `cuda`; they skip without a card.  This file imports no JAX, so it
 also runs on the GPU machine, which has none (and where tests/conftest.py,
@@ -196,3 +197,80 @@ def test_misscore_batch_on_card(dev):
     assert nw_batch.COUNTS["host_dp_pairs"] == 1
     assert got.tolist() == nw_batch.misscore_batch(pairs, device="cpu") \
         .tolist()
+
+
+@pytest.mark.parametrize("shape", [(128, 64, 9), (512, 512, 64)])
+def test_k1_int16_matches_plain_and_int32(dev, shape):
+    N, L, B = shape
+    graphs, reads, packed, arrs = chip_smoke.random_graph_case(N, L, B, 5)
+    args = poa_device.to_torch_packed(*arrs, dev)
+    before = poa_align.LAUNCHES16
+    k16, p16, k32 = chip_smoke.k1_int16_outputs(args, L)
+    assert poa_align.LAUNCHES16 == before + 1
+    for a, b, c in zip(k16, p16, k32):
+        assert (a == b).all() and (a == c).all()
+    for i, g in enumerate(graphs):
+        assert poa_device.unpack_alignment(k16[0][i], k16[1][i], k16[2][i],
+                                           packed[i][4]) == \
+            g.align_only(reads[i])
+
+
+def test_k1_int16_no_sink_and_gate(dev):
+    _g, _r, _p, arrs = chip_smoke.random_graph_case(128, 64, 9, 6)
+    sinks = arrs[2].copy()
+    sinks[3] = False
+    args = poa_device.to_torch_packed(arrs[0], arrs[1], sinks, *arrs[3:], dev)
+    k16, p16, _k32 = chip_smoke.k1_int16_outputs(args, 64)
+    assert k16[3][3] == poa_device.NEG16
+    for a, b in zip(k16, p16):
+        assert (a == b).all()
+    big = poa_device.to_torch_packed(
+        np.zeros((2, 2048), np.uint8), np.full((2, 2048, 8), -1, np.int32),
+        np.zeros((2, 2048), bool), np.full(2, 4, np.int32),
+        np.zeros((2, 8), np.uint8), np.full(2, 4, np.int32), dev)
+    before = poa_align.LAUNCHES16
+    with pytest.raises(ValueError):
+        poa_align.align_batch(*big, 8, int16_mode=True)
+    assert poa_align.LAUNCHES16 == before
+
+
+def test_attached_bench_on_card(dev):
+    from svscope_tpu_torch.tools import attached_bench as tab
+    poa_align.reset_launches()
+    res = tab.main(["--device", "cuda", "--b", "8", "--reps", "2"])
+    assert len(res) == 4 and poa_align.LAUNCHES16 > 0
+    assert poa_align.LAUNCHES > 0
+
+
+def test_row_probe_kernels_match_plain(dev):
+    from svscope_tpu_torch.tools.probe import row_probe as rp
+    chars, seqs = rp.make_inputs(16, dev)
+    for v in rp.VARIANTS:
+        before = rp.LAUNCHES[v]
+        got = rp.row_probe(chars, seqs, v)
+        assert rp.LAUNCHES[v] == before + 1
+        assert torch.equal(got.cpu(), rp.row_probe_reference(
+            chars, seqs, v).cpu()), v
+
+
+def test_fusebody_probe_kernels_match_plain(dev):
+    from svscope_tpu_torch.tools.probe import fusebody_probe as fp
+    *ops, st0 = fp.device_inputs(fp.build_states(), dev)
+    for v in fp.VARIANTS:
+        sk, sp = st0.clone(), st0.clone()
+        got = [*fp.fusebody(v, *ops, sk), *sk.tensors()]
+        want = [*fp.fusebody_reference(v, *ops, sp, fp.OUT_LEN - fp.STEPS),
+                *sp.tensors()]
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu()), v
+
+
+def test_int16_probe_ops_match_plain(dev):
+    from svscope_tpu_torch.tools.probe import int16_probe as ip
+    for inputs in (ip.probe_inputs(dev), ip.large_inputs(1000, dev)):
+        for op in ip.ALL_OPS:
+            got = ip.int16_op(op, *inputs)
+            assert torch.equal(got.cpu(), ip.int16_op_reference(
+                op, *inputs).cpu()), op
+    res = ip.main(["--device", "cuda", "--rows", "4096", "--reps", "2"])
+    assert all(r["ok"] for r in res.values())

@@ -1,7 +1,8 @@
 """Inputs of the port's tests and of chip_smoke.py, free of the JAX package.
 
-The same generators as `bench.make_window_payloads` and
-`tests/synth.make_test_pair`, built on the port's own WindowData, BAM
+The same generators as `bench.make_window_payloads` (kept in the package,
+svscope_tpu_torch/tools/workloads.py, for the kernel measurement tools)
+and `tests/synth.make_test_pair`, built on the port's own WindowData, BAM
 writer and FASTA writer, so the card's machine (which has no JAX) draws the
 identical inputs: the same rng calls in the same order give the same
 payloads and the same BAM bytes (tests/test_torch_imports.py holds them
@@ -11,51 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from svscope_tpu_torch.engine.datamaker import WindowData
 from svscope_tpu_torch.io.bam import BamRecord, BamWriter, parse_cigar_string
 from svscope_tpu_torch.io.fasta import write_fasta
-
-# bench.py's window workload
-N_READS = 24
-WIN_LEN = 300
-OFFSET = 50
-INS_LEN = 60
-
-
-def make_window_payloads(n, rng, n_reads=N_READS, ins_carriers=8):
-    """WindowData payloads: ref window + reads, the first ins_carriers
-    (tumor) reads carrying a 60 bp INS (bench.make_window_payloads on the
-    port's WindowData)."""
-    wins = []
-    for w in range(n):
-        ref = "".join(rng.choice(list("ACGT"), WIN_LEN + 2 * OFFSET))
-        ins = "".join(rng.choice(list("ACGT"), INS_LEN))
-        mid = len(ref) // 2
-        reads = []
-        for i in range(n_reads):
-            base = ref
-            if i < min(n_reads // 2, ins_carriers):
-                base = ref[:mid] + ins + ref[mid:]
-            b = list(base)
-            for _ in range(4):          # light ONT-like noise
-                p = int(rng.integers(1, len(b) - 1))
-                op = int(rng.integers(0, 3))
-                if op == 0:
-                    b[p] = str(rng.choice(list("ACGT")))
-                elif op == 1:
-                    b.insert(p, str(rng.choice(list("ACGT"))))
-                else:
-                    b.pop(p)
-            reads.append("".join(b))
-        # both tags >= 3: first half tumor (with INS), second half normal
-        ids = ([f"S_tumor|w{w}r{i}" for i in range(n_reads // 2)]
-               + [f"S_normal|w{w}r{i}" for i in range(n_reads // 2, n_reads)])
-        wins.append(WindowData([ref] + reads, np.array(ids),
-                               ref[:OFFSET], ref[-OFFSET:],
-                               f"chr1\t{1000 + w * 1000}\t{1000 + w * 1000 + WIN_LEN}",
-                               "NormalOutput"))
-    return wins
-
+from svscope_tpu_torch.tools.workloads import make_window_payloads  # noqa: F401
 
 def rand_seq(rng, n):
     return "".join(rng.choice(list("ACGT"), n))
