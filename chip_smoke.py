@@ -14,13 +14,22 @@ non-zero before the final line:
   2. K1 (csrc/poa_align.cu) against its plain torch version on the card at
      (N, L, B) = (128, 64, 9), (512, 512, 64), (1024, 512, 256),
      (2048, 2048, 8): identical outputs, identical to the C++ engine's own
-     alignment; then both timed at B=64, N=512, L=512 (CUDA events).
+     alignment; on hand-built edge windows (a rank with 8 distinct preds,
+     more ranks than threads, a read longer than its graph, no sink) and
+     on the heavy windows after 399 reads (B=32, N=2048, L=512): identical
+     to the plain version.  Then timed, the kernel's calls queued ahead of
+     the device (tools/timing.py) and, once, issued back to back (the
+     earlier timing, host issue included): k1-time at B=64, N=512, L=512
+     (random graphs); k1-time-heavy at the heavy tier's own call (B=32,
+     N=1024, L=512, tools/workloads.heavy_round_workload), kernel == plain
+     there too.
   3. the slice: the 256-window bench workload through the port's
      process_window_batch with device POA (the kernel): every record's
      sha256 equals tests/data/jax_localgraph_golden.json, the records
      equal the port's host-POA run, the kernel launch count of that run is
      > 0; warm windows/s for device and host POA.
-  4. the heavy tier (32 windows x 400 reads): golden 32/32, windows/s.
+  4. the heavy tier (32 windows x 400 reads): golden 32/32, its K1
+     launches (K1's main path is both runs, each counted from 0), w/s.
   5. the CLI: `python -m svscope_tpu_torch.cli localGraph --device cuda`
      on the synthetic BAM pair; Raw.bed sha256 equals the golden.
   6. pk-parity: K3, K4 and K5 against their plain versions (and K4 against
@@ -42,15 +51,19 @@ non-zero before the final line:
      indels plus the edge cases (both sides at the bucket edge, an empty
      side; batches not a multiple of 8): identical; identical to the host
      DP (every pair up to 512, 16 per larger bucket) and to the JAX golden
-     (tests/data/jax_alnfeature_golden.json).  Then misscore4096: 4,096
-     pairs of 100-4,000 bp, kernel == plain in every bucket, and
-     misscore_batch (MisScore's entry point) on the card gives the plain
-     MisScores with one K2 launch per bucket and 0 host-DP pairs.
- 12. k2-time: K2 and its plain version per bucket of misscore4096 (CUDA
-     events), useful GCUPS = sum(la * lb) / t.
+     (tests/data/jax_alnfeature_golden.json); the band-edge pairs
+     (k2_edge_pairs: `a` of 0, 1, a band's height and two bands +-1, the
+     bucket; `b` empty, 1 bp, the bucket) == plain == host DP.  Then
+     misscore4096: 4,096 pairs of 100-4,000 bp, kernel == plain in every
+     bucket, and misscore_batch (MisScore's entry point) on the card gives
+     the plain MisScores with one K2 launch per bucket and 0 host-DP pairs.
+ 12. k2-time: K2 (calls queued ahead; and issued back to back, the
+     earlier timing) and its plain version per bucket of misscore4096, useful
+     GCUPS = sum(la * lb) / t.
  13. misscore-pipe: a Raw.bed of the port's own bench256 and heavy32x400
      records; misscore_pipe on the card (K2) gives the host DP's MisScore
-     column, K2 launched, 0 pairs sent to the host DP; pairs per bucket.
+     column, K2 launched, 0 pairs sent to the host DP; pairs per bucket,
+     and K2's time per launch at those buckets.
  14. cli-alnfeature: `AlnFeature --device cuda` on the synth pair with the
      golden Raw.bed, then `adjustVCF`: S.Somatic.bed, RandomForestResult.tsv,
      S.vcf, S.mergedSomatic.vcf and the adjusted VCF equal the golden
@@ -74,10 +87,16 @@ non-zero before the final line:
      0), which times every variant against its plain version, the
      kernels' calls queued ahead of the device.
 
+With `--ab TREE ...` (source trees' roots, relative to this script; "."
+is this checkout), K1 at the k1-time and heavy shapes and K2 at every
+misscore4096 bucket are then timed in each tree's own build, a process per
+tree, on the same saved inputs, each tree twice in turns (phase `ab`).
+
 Then one JSON line listing every kernel with its launches on the main path,
 error, times and bound (a probe's row: the sums over its variants, which
-it lists under "variants"), the card line, and the last line
-{"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
+it lists under "variants"; K1's row adds its launches per workload and the
+heavy shape, K2's its time per bucket launch), the card line, and the last
+line {"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
 package (checked at the end).
 """
 import hashlib
@@ -92,6 +111,7 @@ from concurrent.futures import ThreadPoolExecutor
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((128, 64, 9), (512, 512, 64), (1024, 512, 256), (2048, 2048, 8))
 TIME_SHAPE = (512, 512, 64)
+HEAVY_2048_READS = 399             # heavy graphs past 1024 nodes
 KERNEL_REPLACES = "svscope_tpu/ops/poa_pallas.py:117"
 PK_KERNELS = {
     "K3": ("align_tb (K3, pk round: DP + traceback)", "poa_pk_align.cu",
@@ -207,6 +227,59 @@ def random_graph_case(N, L, B, seed):
     return graphs, reads, packed, (chars, preds, sinks, nn, seqs, lens)
 
 
+def k1_edge_case(B=4, N=512, L=64):
+    """Hand-built windows at the edges of K1's layout (numpy arrays, as
+    random_graph_case's last item): 0, a rank with 8 distinct preds (8
+    sources fanning into one node, then a chain); 1, 500 ranks (more than
+    the CTA's 96 threads) with a branch every 50 ranks and a read filling
+    l_max; 2, a read longer than its 20-node chain; 3, window 0 with no
+    sink."""
+    import numpy as np
+    rng = np.random.default_rng(17)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    chars = rng.choice(acgt, (B, N)).astype(np.uint8)
+    preds = np.full((B, N, 8), -1, np.int32)
+    sinks = np.zeros((B, N), bool)
+    nn = np.array([60, 500, 20, 60][:B], np.int32)
+    lens = np.array([50, L, 60, 50][:B], np.int32)
+    for w in range(B):
+        for r in range(1, int(nn[w])):
+            preds[w, r, 0] = r - 1
+            if w == 1 and r % 50 == 0:
+                preds[w, r, 1] = r - 3
+        sinks[w, nn[w] - 1] = True
+    for w in (0, 3):
+        preds[w, :8] = -1
+        preds[w, 8] = np.arange(8)
+    chars[3], preds[3] = chars[0], preds[0]
+    sinks[3] = False
+    seqs = np.zeros((B, L), np.uint8)
+    for w in range(B):
+        seqs[w, :lens[w]] = rng.choice(acgt, int(lens[w]))
+    return chars, preds, sinks, nn, seqs, lens
+
+
+def k2_edge_pairs(bucket, seed):
+    """Pairs at the edges of K2's bands for one bucket, mixed in one batch:
+    `a` of 0 and 1 bp, a band's height and +-1, two bands and +-1, the
+    bucket and -1 (those <= bucket), each against a mutated copy of itself
+    (cut to the bucket), an empty `b`, 1 bp and a full `b` of `bucket` bp."""
+    import numpy as np
+    import torch_workloads as tw
+    from svscope_tpu_torch.ops.nw_kernel import launch_config
+    band = 32 * launch_config(bucket)[0]
+    rng = np.random.default_rng(seed)
+    las = sorted({n for n in (0, 1, band - 1, band, band + 1, 2 * band - 1,
+                              2 * band, 2 * band + 1, bucket - 1, bucket)
+                  if 0 <= n <= bucket})
+    pairs = []
+    for la in las:
+        a = tw.rand_seq(rng, la)
+        pairs += [(a, tw.mutate(rng, a, 0.05, 2, (1, 8))[:bucket]), (a, ""),
+                  (a, tw.rand_seq(rng, 1)), (a, tw.rand_seq(rng, bucket))]
+    return pairs
+
+
 def bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of moving `nbytes` at the memory
     rate and doing `ops` integer operations at `ops_per_s`."""
@@ -238,57 +311,103 @@ def poa_ops(preds, n_nodes, seq_lens, slot0_copies=False):
         + int((edges * lens).sum()) * POA_OPS_PER_EDGE_CELL
 
 
-def cuda_ms(fn, reps):
-    """Mean ms of fn() over reps calls after a warm-up (CUDA events)."""
+def cuda_ms(fn, reps, queued):
+    """Mean ms of fn() over reps calls after a warm-up (CUDA events; with
+    `queued` the calls are queued ahead of the device, tools/timing.py)."""
     import torch
     from svscope_tpu_torch.tools.timing import time_call
     return time_call(fn, torch.device("cuda", torch.cuda.current_device()),
-                     reps, queued=False)
+                     reps, queued=queued)
 
 
-def check_kernel(dev):
-    """Phase 2: kernel == plain == native at every shape; timings."""
+def k1_parity(arrs, L, dev, what, graphs=None, reads=None, packed=None):
+    """K1 == its plain version on one batch (and == the C++ engine's own
+    alignment where the graphs are given); returns the max error (0)."""
     import numpy as np
     import torch
     from svscope_tpu_torch.ops import poa_align, poa_device
+    args = poa_device.to_torch_packed(*arrs, dev)
+    got = [t.cpu().numpy().astype(np.int64)
+           for t in poa_align.align_batch_cuda(*args, L)]
+    torch.cuda.synchronize()
+    want = [t.cpu().numpy().astype(np.int64)
+            for t in poa_device.align_batch_reference(*args, L)]
+    err = max(int(np.abs(a - b).max()) for a, b in zip(got, want))
+    if err:
+        raise RuntimeError(f"kernel != plain on {what}")
+    an, asp, ke, _sc = got
+    for i, g in enumerate(graphs or ()):
+        aln = poa_device.unpack_alignment(an[i], asp[i], ke[i], packed[i][4])
+        if aln != g.align_only(reads[i]):
+            raise RuntimeError(f"kernel != native engine, window {i} on "
+                               f"{what}")
+    return err
+
+
+def k1_time(arrs, L, dev, name, t0):
+    """K1 (calls queued ahead of the device, and issued back to back, the
+    earlier timing) and its plain version on one batch; the bound from its
+    inputs.  Returns {ms, ms_issued, plain_ms, bound}."""
+    import numpy as np
+    from svscope_tpu_torch.ops import poa_align, poa_device
+    args = poa_device.to_torch_packed(*arrs, dev)
+    B, N = arrs[0].shape
+    cells = float((arrs[3].astype(np.int64) * arrs[5]).sum())
+    k_ms = cuda_ms(lambda: poa_align.align_batch_cuda(*args, L), 20, True)
+    k_issued = cuda_ms(lambda: poa_align.align_batch_cuda(*args, L), 20,
+                       False)
+    p_ms = cuda_ms(lambda: poa_device.align_batch_reference(*args, L), 3,
+                   False)
+    outs = poa_align.align_batch_cuda(*args, L)
+    bnd = bound(tensor_bytes(*args, *outs), poa_ops(arrs[1], arrs[3],
+                                                    arrs[5]))
+    phase(name, t0, f"B={B} N={N} L={L} (nodes {int(arrs[3].min())}-"
+          f"{int(arrs[3].max())}): kernel {k_ms:.4f} ms "
+          f"({cells / k_ms / 1e6:.3f} GCUPS; calls queued ahead of the "
+          f"device), {k_issued:.4f} ms issued back to back; "
+          f"plain {p_ms:.4f} ms ({cells / p_ms / 1e6:.3f} GCUPS), useful "
+          f"cells {int(cells)}, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    return {"ms": k_ms, "ms_issued": k_issued, "plain_ms": p_ms,
+            "bound": bnd}
+
+
+def check_kernel(dev):
+    """Phase 2: kernel == plain == native at every shape, on the edge
+    windows and on heavy graphs past 1024 nodes; timings at the k1-time
+    shape and the heavy shape (kernel == plain there too)."""
+    import numpy as np
+    from svscope_tpu_torch.tools import workloads as tw
     max_err = 0
     for N, L, B in SHAPES:
         t0 = time.perf_counter()
         graphs, reads, packed, arrs = random_graph_case(N, L, B, seed=N + B)
-        args = poa_device.to_torch_packed(*arrs, dev)
-        got = [t.cpu().numpy().astype(np.int64)
-               for t in poa_align.align_batch_cuda(*args, L)]
-        torch.cuda.synchronize()
-        want = [t.cpu().numpy().astype(np.int64)
-                for t in poa_device.align_batch_reference(*args, L)]
-        err = max(int(np.abs(a - b).max()) for a, b in zip(got, want))
-        max_err = max(max_err, err)
-        if err:
-            raise RuntimeError(f"kernel != plain at N={N} L={L} B={B}")
-        an, asp, ke, _sc = got
-        for i, g in enumerate(graphs):
-            aln = poa_device.unpack_alignment(an[i], asp[i], ke[i],
-                                              packed[i][4])
-            if aln != g.align_only(reads[i]):
-                raise RuntimeError(f"kernel != native engine, window {i} "
-                                   f"at N={N} L={L} B={B}")
+        max_err = max(max_err, k1_parity(arrs, L, dev, f"N={N} L={L} B={B}",
+                                          graphs, reads, packed))
         phase("k1-parity", t0, f"N={N} L={L} B={B} max_nodes="
               f"{int(arrs[3].max())} kernel==plain==native")
     t0 = time.perf_counter()
+    max_err = max(max_err, k1_parity(k1_edge_case(), 64, dev, "edge windows"))
+    phase("k1-parity", t0, "edge windows N=512 L=64 B=4 (a rank with 8 "
+          "distinct preds; 500 ranks on 96 threads; a 60 bp read on a "
+          "20-node chain; no sink): kernel==plain")
+    t0 = time.perf_counter()
+    wins = tw.make_window_payloads(tw.HEAVY_WINDOWS, np.random.default_rng(
+        tw.HEAVY_SEED), n_reads=tw.HEAVY_READS,
+        ins_carriers=tw.HEAVY_READS // 2)
+    arrs = tw.round_workload(wins, HEAVY_2048_READS, 2048, 512)
+    max_err = max(max_err, k1_parity(arrs, 512, dev, "heavy N=2048"))
+    phase("k1-parity", t0, f"heavy windows after {HEAVY_2048_READS} reads, "
+          f"B={len(wins)} N=2048 L=512 nodes {int(arrs[3].min())}-"
+          f"{int(arrs[3].max())}: kernel==plain")
+    t0 = time.perf_counter()
     N, L, B = TIME_SHAPE
-    graphs, reads, packed, arrs = random_graph_case(N, L, B, seed=7)
-    args = poa_device.to_torch_packed(*arrs, dev)
-    cells = float((arrs[3].astype(np.int64) * arrs[5]).sum())
-    k_ms = cuda_ms(lambda: poa_align.align_batch_cuda(*args, L), 20)
-    p_ms = cuda_ms(lambda: poa_device.align_batch_reference(*args, L), 3)
-    outs = poa_align.align_batch_cuda(*args, L)
-    k1_bound = bound(tensor_bytes(*args, *outs),
-                     poa_ops(arrs[1], arrs[3], arrs[5]))
-    phase("k1-time", t0, f"B={B} N={N} L={L}: kernel {k_ms:.4f} ms "
-          f"({cells / k_ms / 1e6:.3f} GCUPS), plain {p_ms:.4f} ms "
-          f"({cells / p_ms / 1e6:.3f} GCUPS), useful cells {int(cells)}, "
-          f"bound {k1_bound[0]:.4f} ms ({k1_bound[1]})")
-    return max_err, k_ms, p_ms, k1_bound
+    _g, _r, _p, arrs = random_graph_case(N, L, B, seed=7)
+    main = k1_time(arrs, L, dev, "k1-time", t0)
+    t0 = time.perf_counter()
+    arrs = tw.heavy_round_workload()
+    max_err = max(max_err, k1_parity(arrs, 512, dev, "heavy N=1024"))
+    heavy = k1_time(arrs, 512, dev, "k1-time-heavy", t0)
+    return max_err, main, heavy
 
 
 def run_workload(name, golden, dev, device_runs, host_runs):
@@ -639,6 +758,7 @@ def check_k2(dev):
             raise RuntimeError(f"k2 bucket {bucket}: golden pairs differ "
                                "(numpy drew other inputs)")
         n_host = len(pairs) if bucket <= 512 else K2_HOST_LARGE
+        edges = k2_edge_pairs(bucket, 2000 + bucket)
         for name, sc in ag.SCORINGS.items():
             k, p = k2_pair(pairs, bucket, dev, sc)
             err = int((k - p).abs().max())
@@ -654,11 +774,21 @@ def check_k2(dev):
             if kg.T.tolist() != gold[str(bucket)][name]:
                 raise RuntimeError(f"K2 != JAX golden at bucket {bucket} "
                                    f"{sc}")
+            ke, pe = k2_pair(edges, bucket, dev, sc)
+            err = int((ke - pe).abs().max())
+            max_err = max(max_err, err)
+            host = torch.tensor([nw_align_stats(a, b, *sc)
+                                 for a, b in edges], dtype=torch.int32).T
+            if err or not torch.equal(ke, host):
+                raise RuntimeError(f"K2 != plain or host DP on the band-edge "
+                                   f"pairs at bucket {bucket} {sc}")
         lens = [max(len(a), len(b)) for a, b in pairs]
         phase("k2-parity", t0, f"bucket {bucket}: {len(pairs)} pairs "
               f"(longer side {min(lens)}-{max(lens)} bp), score sets "
               f"{list(ag.SCORINGS.values())}: kernel==plain, ==host DP on "
-              f"{n_host}, ==JAX golden on {len(gpairs)}")
+              f"{n_host}, ==JAX golden on {len(gpairs)}; {len(edges)} "
+              f"band-edge pairs (a of {sorted({len(a) for a, _ in edges})} "
+              "bp): kernel==plain==host DP")
     t0 = time.perf_counter()
     pairs = tw.misscore4096_pairs()
     groups = {}
@@ -687,34 +817,49 @@ def check_k2(dev):
 
 
 def time_k2(pairs, groups, dev):
-    """Phase 12: K2 and its plain version per bucket of misscore4096.
-    Returns (kernel ms, plain ms, bound) summed over the bucket launches."""
+    """Phase 12: K2 (calls queued ahead of the device; and issued back to
+    back, the earlier timing) and its plain version per bucket of
+    misscore4096.
+    Returns (kernel ms, plain ms, bound) summed over the bucket launches,
+    and the per-bucket rows."""
     import torch
     import alnfeature_golden as ag
     from svscope_tpu_torch.ops import nw_kernel
     t0 = time.perf_counter()
-    rows, k_tot, p_tot, nbytes, ops = [], 0.0, 0.0, 0, 0
+    rows, k_tot, i_tot, p_tot, nbytes, ops = [], 0.0, 0.0, 0.0, 0, 0
+    per_bucket = {}
     for bucket, idxs in sorted(groups.items()):
         sub = [pairs[i] for i in idxs]
         args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(sub, bucket)]
         cells = sum(len(a) * len(b) for a, b in sub)
-        k_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, bucket), 5)
-        p_ms = cuda_ms(lambda: nw_kernel.nw_stats_reference(*args, bucket), 1)
+        k_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, bucket), 5,
+                       True)
+        i_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, bucket), 5,
+                       False)
+        p_ms = cuda_ms(lambda: nw_kernel.nw_stats_reference(*args, bucket), 1,
+                       False)
         k_tot += k_ms
+        i_tot += i_ms
         p_tot += p_ms
         nbytes += tensor_bytes(*args) + 3 * 4 * len(sub)
         ops += cells * K2_OPS_PER_CELL
         b_ms, b_by = bound(tensor_bytes(*args) + 12 * len(sub),
                            cells * K2_OPS_PER_CELL)
+        per_bucket[bucket] = {"pairs": len(sub), "ms": k_ms,
+                              "ms_issued": i_ms, "plain_ms": p_ms,
+                              "bound_ms": b_ms, "gcups": cells / k_ms / 1e6}
         rows.append(f"{bucket}: {len(sub)} pairs kernel {k_ms:.4f} ms "
-                    f"({cells / k_ms / 1e6:.3f} GCUPS) plain {p_ms:.4f} ms "
-                    f"bound {b_ms:.4f} ms ({b_by})")
+                    f"({cells / k_ms / 1e6:.3f} GCUPS; issued back to back "
+                    f"{i_ms:.4f}) plain {p_ms:.4f} ms bound {b_ms:.4f} ms "
+                    f"({b_by})")
     k2_bound = bound(nbytes, ops)
-    phase("k2-time", t0, "misscore4096 per bucket: " + "; ".join(rows)
-          + f"; all buckets kernel {k_tot:.4f} ms plain {p_tot:.4f} ms bound "
+    phase("k2-time", t0, "misscore4096 per bucket (kernel calls queued ahead "
+          "of the device): " + "; ".join(rows)
+          + f"; all buckets kernel {k_tot:.4f} ms (issued back to back: "
+          f"{i_tot:.4f}) plain {p_tot:.4f} ms bound "
           f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), "
           f"{ops / K2_OPS_PER_CELL / k_tot / 1e6:.3f} GCUPS")
-    return k_tot, p_tot, k2_bound
+    return k_tot, p_tot, k2_bound, per_bucket
 
 
 def k2_main_path(name, fn):
@@ -737,9 +882,13 @@ def k2_main_path(name, fn):
 
 def check_misscore_pipe(records, dev):
     """Phase 13: misscore_pipe on the card (K2) == on the host (DP) over a
-    Raw.bed of the port's own records.  Returns K2's launches."""
+    Raw.bed of the port's own records; then K2's time per launch at each of
+    its buckets.  Returns K2's launches and {bucket: time and bound}."""
+    import torch
+    import alnfeature_golden as ag
     import localgraph_golden as lgg
     from svscope_tpu_torch.engine.features import misscore_pipe
+    from svscope_tpu_torch.ops import nw_kernel
     from svscope_tpu_torch.ops.nw_batch import bucket_of
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -755,18 +904,32 @@ def check_misscore_pipe(records, dev):
         td = time.perf_counter() - td
     if not got.equals(host):
         raise RuntimeError("misscore-pipe: card MisScore != host DP")
-    per_bucket = {}
+    groups = {}
     for r in records:
         if r[9] == "NormalOutput|EMOutput":
             for a in str(r[3]).split(";"):
                 for b in str(r[6]).split(";"):
                     k = bucket_of(max(len(a), len(b)))
-                    per_bucket[k] = per_bucket.get(k, 0) + 1
+                    groups.setdefault(k, []).append((a, b))
+    # K2's time per launch at the main path's own buckets
+    launch = {}
+    for k, pairs in sorted(groups.items()):
+        args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(pairs, k)]
+        cells = sum(len(a) * len(b) for a, b in pairs)
+        k_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, k), 20, True)
+        b_ms, b_by = bound(tensor_bytes(*args) + 12 * len(pairs),
+                           cells * K2_OPS_PER_CELL)
+        launch[k] = {"pairs": len(pairs), "ms": k_ms, "bound_ms": b_ms,
+                     "bound_by": b_by}
     phase("misscore-pipe", t0, f"{len(records)} records, {len(got)} "
-          f"EMOutput rows, pairs per bucket {dict(sorted(per_bucket.items()))}"
-          f": MisScore card == host DP, K2 launches {launches}, host-DP "
-          f"pairs 0; card {td:.3f} s, host DP {th:.3f} s")
-    return launches
+          f"EMOutput rows, pairs per bucket "
+          f"{ {k: len(v) for k, v in sorted(groups.items())} }: MisScore "
+          f"card == host DP, K2 launches {launches}, host-DP pairs 0; card "
+          f"{td:.3f} s, host DP {th:.3f} s; K2 per launch (calls queued "
+          "ahead) " + ", ".join(
+              f"bucket {k}: {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_by']})" for k, v in launch.items()))
+    return launches, launch
 
 
 def check_aln_cli(dev):
@@ -1061,6 +1224,78 @@ def check_int16_probe(dev):
     return out
 
 
+# A/B of K1 and K2 between source trees (--ab): each tree's own wrappers
+# and kernels, in a process of its own, on inputs this script saved; only
+# align_batch_cuda, nw_stats_cuda and tools.timing.time_call, which every
+# tree with the kernel measurement tools (tools/timing.py) has, are used.
+AB_SNIPPET = """
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+from svscope_tpu_torch.ops import nw_kernel, poa_align
+from svscope_tpu_torch.tools.timing import time_call
+dev = torch.device("cuda", 0)
+out = {}
+for name, (kind, args, width, reps) in torch.load(sys.argv[2]).items():
+    a = [t.to(dev) for t in args]
+    fn = (poa_align.align_batch_cuda if kind == "k1"
+          else nw_kernel.nw_stats_cuda)
+    out[name] = time_call(lambda: fn(*a, width), dev, reps, queued=True)
+print(json.dumps(out))
+"""
+
+
+def ab_inputs(path, misscore_groups, misscore_pairs):
+    """Save the A/B cases: K1 at the k1-time and heavy shapes, K2 per
+    bucket of misscore4096 (CPU tensors)."""
+    import numpy as np
+    import torch
+    import alnfeature_golden as ag
+    from svscope_tpu_torch.ops import poa_device
+    from svscope_tpu_torch.tools import workloads as tw
+    N, L, B = TIME_SHAPE
+    cases = {}
+    for name, arrs, width in (
+            ("k1 B=64 N=L=512", random_graph_case(N, L, B, seed=7)[3], L),
+            ("k1 heavy B=32 N=1024 L=512", tw.heavy_round_workload(), 512)):
+        cases[name] = ("k1", poa_device.to_torch_packed(*arrs, "cpu"), width,
+                       20)
+    for bucket, idxs in sorted(misscore_groups.items()):
+        sub = [misscore_pairs[i] for i in idxs]
+        cases[f"k2 misscore4096 bucket {bucket}"] = (
+            "k2", [torch.from_numpy(np.ascontiguousarray(x))
+                   for x in ag.pad_pairs(sub, bucket)], bucket, 5)
+    torch.save(cases, path)
+
+
+def run_ab(trees, misscore_groups, misscore_pairs):
+    """K1's and K2's times in each tree of `trees` (this checkout is ".")
+    on the same inputs, in turns: each tree, then each again in reverse
+    order.  Prints one line per turn and the per-case means."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ab_inputs.pt")
+        ab_inputs(path, misscore_groups, misscore_pairs)
+        res = {}
+        for tree in list(trees) + list(reversed(trees)):
+            root = os.path.abspath(os.path.join(HERE, tree))
+            out = subprocess.run([sys.executable, "-c", AB_SNIPPET, root,
+                                  path], cwd=root, capture_output=True,
+                                 text=True, timeout=900)
+            if out.returncode != 0:
+                raise RuntimeError(f"A/B run in {tree} failed:\n"
+                                   f"{out.stderr[-3000:]}")
+            times = json.loads(out.stdout.strip().splitlines()[-1])
+            print(f"  [ab] {tree}: " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
+            for k, v in times.items():
+                res.setdefault(tree, {}).setdefault(k, []).append(v)
+    phase("ab", t0, "ms per call, calls queued ahead, each tree twice: "
+          + "; ".join(f"{k}: " + ", ".join(
+              f"{tree} {' / '.join(f'{v:.4f}' for v in res[tree][k])}"
+              for tree in trees) for k in res[trees[0]]))
+    return res
+
+
 def build_all():
     """Every CUDA kernel (nvcc, one process per source) and the three host
     C++ engines (g++), all at once.  Returns the sources and wall seconds."""
@@ -1083,8 +1318,16 @@ def build_all():
     return sources, time.perf_counter() - t0
 
 
-def main():
+def main(argv=None):
+    import argparse
     import torch
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "GPU (see the module docstring).")
+    ap.add_argument("--ab", nargs="+", metavar="TREE", default=None,
+                    help="after the phases, time K1 and K2 of each source "
+                    "tree (a checkout's root, relative to this script; '.' "
+                    "is this one) in turns on the same inputs")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available on this host",
               file=sys.stderr)
@@ -1103,16 +1346,20 @@ def main():
     sources, build_s = build_all()
     for src in sources:
         for line in BUILD_LOG[src]["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line \
+                    or "Compiling entry" in line:
                 print(f"  ptxas {src}:", line.strip(), flush=True)
     phase("setup", t0, f"{torch.cuda.get_device_name(0)}; built "
           + ", ".join(f"{s} {BUILD_LOG[s]['seconds']:.2f} s" for s in sources)
           + f" and the host C++ engines (all at once, {build_s:.2f} s)")
 
-    max_err, k_ms, p_ms, k1_bound = check_kernel(dev)
+    max_err, k1_main, k1_heavy = check_kernel(dev)
     golden = lgg.load_golden()
-    launches, bench_recs = run_workload("bench256", golden, dev, 3, 3)
-    _l, heavy_recs = run_workload("heavy32x400", golden, dev, 2, 1)
+    # K1's main path: both workloads with device POA, each counted from 0
+    bench_launches, bench_recs = run_workload("bench256", golden, dev, 3, 3)
+    heavy_launches, heavy_recs = run_workload("heavy32x400", golden, dev, 2,
+                                              1)
+    launches = bench_launches + heavy_launches
     check_cli(golden)
 
     pk_err, bench_cap = check_pk_kernels(dev)
@@ -1132,10 +1379,12 @@ def main():
     check_cli(golden, ("--device-poa", "fused"), "cli-fused")
 
     k2_err, k2_pairs, k2_groups = check_k2(dev)
-    k2_ms, k2_plain_ms, k2_bound = time_k2(k2_pairs, k2_groups, dev)
+    k2_ms, k2_plain_ms, k2_bound, k2_buckets = time_k2(k2_pairs, k2_groups,
+                                                       dev)
     # K2's launches on its main path: MisScore of a Raw.bed, then the two
     # CLI runs (each counted from 0 just before it).
-    k2_launches = check_misscore_pipe(bench_recs + heavy_recs, dev)
+    k2_launches, k2_launch = check_misscore_pipe(bench_recs + heavy_recs,
+                                                 dev)
     k2_launches += check_aln_cli(dev)
 
     k16_err = check_k1_int16(dev)
@@ -1143,6 +1392,8 @@ def main():
     probes = {"row": check_row_probe(dev),
               "fusebody": check_fusebody_probe(dev),
               "int16": check_int16_probe(dev)}
+    if args.ab:
+        run_ab(args.ab, k2_groups, k2_pairs)
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "svscope_tpu"))
@@ -1159,16 +1410,30 @@ def main():
     # alignment, a POA graph fusion or NW alignment statistics; null for
     # each probe as a whole (its variants list the int16 probe's
     # torch.maximum and torch.roll beside max16 and roll16).
-    kernels = [row("poa_align (K1, batched POA graph-vs-read NW)",
-                   "poa_align.cu", KERNEL_REPLACES, launches, max_err, k_ms,
-                   p_ms, k1_bound),
+    k1 = row("poa_align (K1, batched POA graph-vs-read NW)", "poa_align.cu",
+             KERNEL_REPLACES, launches, max_err, k1_main["ms"],
+             k1_main["plain_ms"], k1_main["bound"])
+    # the main path's two workloads, and K1 at the heavy shape
+    k1["launches_bench256"] = bench_launches
+    k1["launches_heavy32x400"] = heavy_launches
+    k1["heavy_shape"] = {"B": 32, "N": 1024, "L": 512,
+                         "ms": k1_heavy["ms"],
+                         "plain_ms": k1_heavy["plain_ms"],
+                         "bound_ms": k1_heavy["bound"][0],
+                         "bound_by": k1_heavy["bound"][1]}
+    kernels = [k1,
                row(K1_16_NAME, "poa_align.cu", K1_16_REPLACES, k16_launches,
                    k16_err, k16_ms, k16_plain_ms, k16_bound)]
     for k, (name, src, replaces) in PK_KERNELS.items():
         kernels.append(row(name, src, replaces, pk_launches[k], pk_err[k],
                            pk_ms[k][0], pk_ms[k][1], pk_bounds[k]))
-    kernels.append(row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches,
-                       k2_err, k2_ms, k2_plain_ms, k2_bound))
+    k2 = row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches, k2_err, k2_ms,
+             k2_plain_ms, k2_bound)
+    # ms is misscore4096's six bucket launches; per launch at each bucket of
+    # misscore4096 and of the main path (misscore-pipe)
+    k2["misscore4096_buckets"] = k2_buckets
+    k2["main_path_launch"] = k2_launch
+    kernels.append(k2)
     for k, (name, src, replaces) in PROBES.items():
         p = probes[k]
         entry = row(name, src, replaces, p["launches"], p["max_abs_err"],

@@ -25,6 +25,8 @@ from .nw import GAP, MATCH, MISMATCH
 from .poa_align import check_tensor
 
 SOURCE = "nw_stats.cu"
+MAX_LEN = 32767         # K2 packs (M, A) as M << 16 | A: la + lb < 65536
+LPT_MIN = 1024          # buckets whose pairs run longest first
 NEG = -(2 ** 29)
 LAUNCHES = 0
 _count_lock = threading.Lock()
@@ -42,10 +44,28 @@ def _kernel():
     if _fn is None:
         fn = load_cuda_lib(SOURCE).nw_stats_launch
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 7 + [ci] * 6 + [vp]
+        fn.argtypes = [vp] * 9 + [ci] * 6 + [vp]
         fn.restype = ci
         _fn = fn
     return _fn
+
+
+def launch_config(l_max: int) -> tuple[int, int, bool]:
+    """(rows a lane R, bands of the longest pair, longest pairs first) of K2
+    for pairs padded to l_max: a warp per pair sweeps bands of 32 x R rows
+    of `a`; R = 4, 8, 16 keeps the 128, 256 and 512 buckets in one band and
+    the longer ones in bands of 512 rows; from LPT_MIN on, the pairs run
+    longest first (csrc/nw_stats.cu)."""
+    rows = 4 if l_max <= 128 else 8 if l_max <= 256 else 16
+    return rows, max(1, -(-l_max // (32 * rows))), l_max >= LPT_MIN
+
+
+def scratch_shape(batch: int, l_max: int) -> tuple[int, ...] | None:
+    """Shape of K2's boundary-row buffer, (B, l_max+1, 2) int32 = one
+    (H, M << 16 | A) per column and pair, or None where no pair can have a
+    second band."""
+    _rows, bands, _lpt = launch_config(l_max)
+    return (batch, l_max + 1, 2) if bands > 1 else None
 
 
 def nw_stats_reference(a_codes, b_codes, la, lb, l_max: int,
@@ -107,6 +127,9 @@ def nw_stats_cuda(a_codes, b_codes, la, lb, l_max: int, match: int = MATCH,
     dev = a_codes.device
     if dev.type != "cuda":
         raise ValueError(f"nw_stats_cuda needs CUDA tensors, got {dev}")
+    if l_max > MAX_LEN:
+        raise ValueError(f"l_max {l_max} > {MAX_LEN}, the longest pair K2 "
+                         "takes")
     B = a_codes.shape[0]
     check_tensor("a_codes", a_codes, torch.uint8, (B, l_max), dev)
     check_tensor("b_codes", b_codes, torch.uint8, (B, l_max), dev)
@@ -115,14 +138,22 @@ def nw_stats_cuda(a_codes, b_codes, la, lb, l_max: int, match: int = MATCH,
     out = torch.empty((3, B), dtype=torch.int32, device=dev)
     if B == 0:
         return out[0], out[1], out[2]
-    threads = min(1024, (l_max + 1 + 31) // 32 * 32)
+    rows, _bands, lpt = launch_config(l_max)
+    shape = scratch_shape(B, l_max)
+    scratch = None if shape is None else torch.empty(shape,
+                                                     dtype=torch.int32,
+                                                     device=dev)
+    order = torch.argsort(la.long() * lb.long(), descending=True).to(
+        torch.int32) if lpt else None
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(a_codes.data_ptr(), b_codes.data_ptr(), la.data_ptr(),
                 lb.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-                out[2].data_ptr(), B, l_max, match, mismatch, gap, threads,
-                stream)
+                out[2].data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
+                None if order is None else order.data_ptr(), B, l_max, match,
+                mismatch, gap, rows, stream)
     if rc != 0:
         raise RuntimeError(f"nw_stats_launch failed: CUDA error {rc} "
                            f"(B={B}, l_max={l_max})")

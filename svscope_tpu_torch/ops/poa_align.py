@@ -28,6 +28,10 @@ from .poa_device import (MAX_PREDS, align_batch_reference,
                          check_int16_shape, pad_pred_slots)
 
 SOURCE = "poa_align.cu"
+MAX_TILES = 4           # columns a thread (csrc/poa_align.cu launch())
+TARGET_THREADS = 320    # threads a CTA to aim at
+RING_MAX = 16           # recent H rows in shared memory
+SMEM_MAX = 232448       # dynamic shared memory of a block on the H100
 LAUNCHES = 0
 LAUNCHES16 = 0
 _count_lock = threading.Lock()
@@ -74,11 +78,50 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def align_batch_cuda(chars, preds, sinks, n_nodes, seqs, seq_lens,
-                     l_max: int, int16_mode: bool = False):
-    """Launch K1 (K1-int16 with int16_mode) on CUDA tensors (see
-    align_batch)."""
-    global LAUNCHES, LAUNCHES16
+def launch_tiles(l_max: int) -> int:
+    """Columns a thread of K1's CTA owns for reads padded to l_max: enough
+    that the CTA has about TARGET_THREADS threads (a row costs each thread
+    a fixed share, the scan and the barrier, plus a little per column), at
+    most 3 unless 1024 threads need more, at most MAX_TILES.  ValueError
+    past MAX_TILES * 1024 columns."""
+    l1 = l_max + 1
+    tiles = max(-(-l1 // 1024), min(3, -(-l1 // TARGET_THREADS)))
+    if tiles > MAX_TILES:
+        raise ValueError(f"l_max {l_max} > {MAX_TILES * 1024 - 1}, the "
+                         "widest read K1 takes")
+    return tiles
+
+
+def launch_threads(l_max: int) -> int:
+    """Threads of K1's CTA: the fewest whole warps whose launch_tiles
+    contiguous columns each cover the l_max+1 columns."""
+    return (-(-(l_max + 1) // launch_tiles(l_max)) + 31) // 32 * 32
+
+
+def ring_rows(n_max: int, l_max: int, int16_mode: bool = False) -> int:
+    """Recent H rows K1 keeps in shared memory: RING_MAX, halved until the
+    CTA's shared memory fits SMEM_MAX (csrc/poa_align.cu launch_tiles)."""
+    ring = RING_MAX
+    while ring > 1 and smem_bytes(n_max, l_max, ring, int16_mode) > SMEM_MAX:
+        ring //= 2
+    return ring
+
+
+def smem_bytes(n_max: int, l_max: int, ring: int,
+               int16_mode: bool = False) -> int:
+    """Dynamic shared memory of K1's CTA: the ring of H rows, then per rank
+    8 uint16 pred entries, 8 uint16 per-slot pred rows, the entry count,
+    the node char and the sink flag (csrc/poa_align.cu::smem_bytes)."""
+    return ring * (l_max + 1) * (2 if int16_mode else 4) \
+        + n_max * (2 * MAX_PREDS * 2 + 3)
+
+
+def launch_with(fn, chars, preds, sinks, n_nodes, seqs, seq_lens,
+                l_max: int, int16_mode: bool = False, extra=()):
+    """Check the inputs, allocate the outputs and scratch planes, and call
+    the C entry point `fn` (K1's signature, then `extra` pointers) on the
+    current stream.  Returns (an, asp, k_end, score); raises on a launch
+    error.  Counts nothing."""
     B, N = chars.shape
     if int16_mode:
         check_int16_shape(N, l_max)
@@ -88,7 +131,10 @@ def align_batch_cuda(chars, preds, sinks, n_nodes, seqs, seq_lens,
     L = seqs.shape[1]
     if L > l_max:
         raise ValueError(f"seqs width {L} > l_max {l_max}")
+    threads = launch_threads(l_max)
     p8 = pad_pred_slots(preds).contiguous()
+    if p8.data_ptr() % 16:             # the kernel reads a rank's slots as
+        p8 = p8.clone()                # two 16-byte words
     sinks_u8 = sinks.to(torch.uint8).contiguous()
     check_tensor("chars", chars, torch.uint8, (B, N), dev)
     check_tensor("preds", p8, torch.int32, (B, N, MAX_PREDS), dev)
@@ -106,25 +152,38 @@ def align_batch_cuda(chars, preds, sinks, n_nodes, seqs, seq_lens,
     asp = torch.empty((B, out_len), dtype=torch.int32, device=dev)
     k_end = torch.empty((B,), dtype=torch.int32, device=dev)
     score = torch.empty((B,), dtype=torch.int32, device=dev)
-    threads = min(1024, (l1 + 31) // 32 * 32)
-    fn = _kernel(int16_mode)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(chars.data_ptr(), p8.data_ptr(), sinks_u8.data_ptr(),
                 n_nodes.data_ptr(), seqs.data_ptr(), seq_lens.data_ptr(),
                 H.data_ptr(), D.data_ptr(), an.data_ptr(), asp.data_ptr(),
-                k_end.data_ptr(), score.data_ptr(), B, N, L, l_max, threads,
-                stream)
+                k_end.data_ptr(), score.data_ptr(), B, N, L, l_max,
+                threads, stream, *extra)
     if rc != 0:
         raise RuntimeError(f"poa_align{'16' if int16_mode else ''}_launch "
                            f"failed: CUDA error {rc} (B={B}, N={N}, "
                            f"l_max={l_max})")
+    return an, asp, k_end, score
+
+
+def align_batch_cuda(chars, preds, sinks, n_nodes, seqs, seq_lens,
+                     l_max: int, int16_mode: bool = False):
+    """Launch K1 (K1-int16 with int16_mode) on CUDA tensors (see
+    align_batch)."""
+    global LAUNCHES, LAUNCHES16
+    if int16_mode:
+        check_int16_shape(chars.shape[1], l_max)
+    if chars.device.type != "cuda":
+        raise ValueError(f"align_batch_cuda needs CUDA tensors, got "
+                         f"{chars.device}")
+    out = launch_with(_kernel(int16_mode), chars, preds, sinks, n_nodes,
+                      seqs, seq_lens, l_max, int16_mode)
     with _count_lock:
         if int16_mode:
             LAUNCHES16 += 1
         else:
             LAUNCHES += 1
-    return an, asp, k_end, score
+    return out
 
 
 def align_batch(chars, preds, sinks, n_nodes, seqs, seq_lens, l_max: int,

@@ -28,13 +28,11 @@ import argparse
 import numpy as np
 import torch
 
-from ..native.poa import NativePoaGraph
 from ..ops import poa_align
-from ..ops.poa_device import (MAX_PREDS, align_batch_reference,
-                              to_torch_packed)
+from ..ops.poa_device import align_batch_reference, to_torch_packed
 from ..utils.device import resolve_device
 from .timing import time_call
-from .workloads import make_window_payloads
+from .workloads import make_window_payloads, round_workload
 
 N_BUCKET = 512
 L_BUCKET = 512
@@ -48,26 +46,8 @@ def build_round_workload(b: int, rng):
     14th read of each: (chars, preds, sinks, n_nodes, seqs, seq_lens, N, L)
     as numpy arrays, as the JAX tool builds them."""
     wins = make_window_payloads(b, rng)
-    N, L = N_BUCKET, L_BUCKET
-    chars = np.zeros((b, N), np.uint8)
-    preds = np.full((b, N, MAX_PREDS), -1, np.int32)
-    sinks = np.zeros((b, N), bool)
-    nn = np.zeros(b, np.int32)
-    seqs = np.zeros((b, L), np.uint8)
-    lens = np.zeros(b, np.int32)
-    for i, w in enumerate(wins):
-        g = NativePoaGraph()
-        for s in w.sequences[:GRAPH_READS]:
-            g.add_sequence(s)
-        packed = g.pack(N, MAX_PREDS)
-        if packed is None:
-            raise RuntimeError(f"bench window {i} exceeds the ({N}, {L}) "
-                               "bucket")
-        chars[i], preds[i], sinks[i], nn[i] = packed[:4]
-        nxt = w.sequences[GRAPH_READS]
-        seqs[i, :len(nxt)] = np.frombuffer(nxt.encode(), np.uint8)
-        lens[i] = len(nxt)
-    return chars, preds, sinks, nn, seqs, lens, N, L
+    return (*round_workload(wins, GRAPH_READS, N_BUCKET, L_BUCKET),
+            N_BUCKET, L_BUCKET)
 
 
 def engines(l_max: int, skip_int16: bool = False):

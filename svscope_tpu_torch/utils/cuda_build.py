@@ -29,7 +29,7 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 _lock = threading.Lock()
 _source_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
-BUILD_LOG: dict[str, dict] = {}    # source name -> {seconds, ptxas, lib}
+BUILD_LOG: dict[str, dict] = {}    # build_key -> {seconds, ptxas, lib}
 
 
 def find_nvcc() -> str:
@@ -82,33 +82,44 @@ def _source_lock(source: str) -> threading.Lock:
         return _source_locks.setdefault(source, threading.Lock())
 
 
-def load_cuda_lib(source: str) -> ctypes.CDLL:
-    """ctypes handle of csrc/<source> built for sm_90a (built if needed)."""
-    with _source_lock(source):
-        if source in _loaded:
-            return _loaded[source]
+def build_key(source: str, defines=()) -> str:
+    """Name of one build of `source`: the source, then each `-D` macro."""
+    return " ".join([source, *(f"-D{d}" for d in defines)])
+
+
+def load_cuda_lib(source: str, defines=()) -> ctypes.CDLL:
+    """ctypes handle of csrc/<source> built for sm_90a (built if needed),
+    with the preprocessor macros `defines` (names, or NAME=value) set: a
+    build per set of macros, each its own library."""
+    defines = tuple(defines)
+    key = build_key(source, defines)
+    with _source_lock(key):
+        if key in _loaded:
+            return _loaded[key]
         src = os.path.join(CSRC, source)
         stem = os.path.splitext(source)[0]
-        lib = os.path.join(BUILD_DIR, f"lib{stem}_{source_digest(source)}.so")
+        tag = "".join("_" + re.sub(r"\W", "_", d) for d in defines)
+        lib = os.path.join(BUILD_DIR,
+                           f"lib{stem}{tag}_{source_digest(source)}.so")
         if not os.path.exists(lib):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
             cmd = [find_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
                    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
-                   "-o", tmp, src]
+                   *(f"-D{d}" for d in defines), "-o", tmp, src]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {source} "
                                    f"(rc {res.returncode}):\n{res.stderr}")
             os.replace(tmp, lib)
-            BUILD_LOG[source] = {"seconds": time.perf_counter() - t0,
+            BUILD_LOG[key] = {"seconds": time.perf_counter() - t0,
                                  "ptxas": res.stderr.strip(), "lib": lib}
         else:
-            BUILD_LOG.setdefault(source, {"seconds": 0.0, "ptxas": "",
+            BUILD_LOG.setdefault(key, {"seconds": 0.0, "ptxas": "",
                                           "lib": lib})
         handle = ctypes.CDLL(lib)
-        _loaded[source] = handle
+        _loaded[key] = handle
         return handle
 
 

@@ -56,3 +56,32 @@ def test_skip_int16_and_round_outputs_agree():
     a16 = poa_align.align_batch(*args, L, int16_mode=True)
     for x, y in zip(a32, a16):
         assert torch.equal(x, y)
+
+
+def test_heavy_round_workload_is_a_k1_call():
+    """The heavy tier's K1 call (32 windows after 200 sequences, packed to
+    N = 1024, L = 512; tools/k1_split and chip_smoke's k1-time-heavy): its
+    graphs lie in the 1024 bucket, and the plain aligner on two of them
+    gives the C++ engine's own alignment of the next read."""
+    from svscope_tpu_torch.native.poa import NativePoaGraph
+    from svscope_tpu_torch.ops.poa_device import (align_batch_reference,
+                                                  to_torch_packed,
+                                                  unpack_alignment)
+    from svscope_tpu_torch.tools import k1_split, workloads as wl
+    chars, preds, sinks, nn, seqs, lens, L = k1_split.workload("heavy")
+    assert chars.shape == (wl.HEAVY_WINDOWS, 1024) and L == 512
+    assert 512 < nn.min() and nn.max() <= 1024 and 0 < lens.min()
+    wins = wl.make_window_payloads(2, np.random.default_rng(wl.HEAVY_SEED),
+                                   n_reads=wl.HEAVY_READS,
+                                   ins_carriers=wl.HEAVY_READS // 2)
+    an, asp, ke, _sc = align_batch_reference(*to_torch_packed(
+        chars[:2], preds[:2], sinks[:2], nn[:2], seqs[:2], lens[:2], "cpu"),
+        L)
+    for i, w in enumerate(wins):
+        g = NativePoaGraph()
+        for s in w.sequences[:wl.HEAVY_GRAPH_READS]:
+            g.add_sequence(s)
+        nor = g.pack(1024, 8)[4]
+        assert unpack_alignment(an[i].numpy(), asp[i].numpy(), int(ke[i]),
+                                nor) == \
+            g.align_only(w.sequences[wl.HEAVY_GRAPH_READS])

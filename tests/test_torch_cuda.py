@@ -1,7 +1,8 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (K1 and K1-int16; K3,
 K4, K5 of the fused pk build; K2 of the MisScore path; the row,
-fusion-body and int16 probes) against their plain torch versions, and the
-slices' device paths and the measurement tools, on the card.
+fusion-body and int16 probes) against their plain torch versions, at the
+edges of K1's and K2's layouts too, and the slices' device paths and the
+measurement tools (K1's clock64 split among them), on the card.
 
 Marked `cuda`; they skip without a card.  This file imports no JAX, so it
 also runs on the GPU machine, which has none (and where tests/conftest.py,
@@ -73,6 +74,35 @@ def test_kernel_edge_windows(dev):
                                   L, dev)
     for g, w in zip(got, want):
         assert (g == w).all()
+
+
+def test_kernel_edge_layout_windows(dev):
+    """A rank with 8 distinct preds, more ranks than the CTA's threads, a
+    read longer than its graph and a window with no sink."""
+    got, want = _kernel_and_plain(chip_smoke.k1_edge_case(), 64, dev)
+    for g, w in zip(got, want):
+        assert (g == w).all()
+    assert got[3][3] == poa_device.NEG
+
+
+def test_kernel_heavy_bucket_2048(dev):
+    """Heavy's B = 32 at the N = 2048 bucket (graphs past 1024 nodes)."""
+    from svscope_tpu_torch.tools import workloads as wl
+    wins = wl.make_window_payloads(wl.HEAVY_WINDOWS, np.random.default_rng(
+        wl.HEAVY_SEED), n_reads=wl.HEAVY_READS,
+        ins_carriers=wl.HEAVY_READS // 2)
+    arrs = wl.round_workload(wins, chip_smoke.HEAVY_2048_READS, 2048, 512)
+    assert arrs[3].min() > 1024
+    got, want = _kernel_and_plain(arrs, 512, dev)
+    for g, w in zip(got, want):
+        assert (g == w).all()
+
+
+def test_k1_split_tool_on_card(dev):
+    from svscope_tpu_torch.tools import k1_split
+    res = k1_split.main(["--workload", "attached", "--reps", "2"])
+    shares = [p["share"] for p in res["attached"]["parts"].values()]
+    assert abs(sum(shares) - 1) < 1e-6
 
 
 def test_kernel_rejects_bad_input(dev):
@@ -171,6 +201,36 @@ def test_k2_matches_plain_and_host(dev, bucket):
                                         for a, b in pairs[:4]]
 
 
+@pytest.mark.parametrize("bucket", [128, 256, 512, 1024, 4096])
+def test_k2_band_edges(dev, bucket):
+    """la at 0, 1, the band height and two bands, each +-1, and the bucket;
+    lb at 0, 1 and the bucket; mixed in one launch, both score sets;
+    kernel == plain == host DP."""
+    pairs = chip_smoke.k2_edge_pairs(bucket, bucket)
+    for sc in ag.SCORINGS.values():
+        k, p = chip_smoke.k2_pair(pairs, bucket, dev, sc)
+        assert torch.equal(k, p)
+        assert k.T.tolist() == [list(nw.nw_align_stats(a, b, *sc))
+                                for a, b in pairs]
+
+
+def test_k2_packing_gate_edge(dev):
+    """K2 packs (M, A) as M << 16 | A up to l_max = MAX_LEN: at the edge an
+    all-gap alignment of A = 65534 (gaps beat mismatches under
+    (1, -3, -1)) and M = 32767 (identical sides) come out whole; one more
+    bp raises."""
+    n = nw_kernel.MAX_LEN
+    pairs = [("A" * n, "C" * n), ("A" * n, "A" * n)]
+    args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(pairs, n)]
+    got = torch.stack(nw_kernel.nw_stats_cuda(*args, n, 1, -3, -1)).cpu()
+    assert got.T.tolist() == [[-2 * n, 0, 2 * n], [n, n, n]]
+    wide = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(pairs, n + 1)]
+    before = nw_kernel.LAUNCHES
+    with pytest.raises(ValueError):
+        nw_kernel.nw_stats_cuda(*wide, n + 1)
+    assert nw_kernel.LAUNCHES == before
+
+
 def test_k2_counts_launches_and_rejects_bad_input(dev):
     args = [torch.from_numpy(x).to(dev)
             for x in ag.pad_pairs([("ACGT", "AGT"), ("", "A")], 128)]
@@ -183,7 +243,7 @@ def test_k2_counts_launches_and_rejects_bad_input(dev):
         nw_kernel.nw_stats_cuda(args[0], args[1], args[2].long(), args[3],
                                 128)
     with pytest.raises(ValueError):
-        nw_kernel.nw_stats_cuda(*args, 8192)          # shared memory
+        nw_kernel.nw_stats_cuda(*args, 8192)          # width != l_max
 
 
 def test_misscore_batch_on_card(dev):

@@ -43,3 +43,11 @@ def test_repo_kernels_share_the_dp_header():
         assert cuda_build.source_files(src) == [src, "poa_dp.cuh"]
     assert cuda_build.source_files("poa_pk_fusion.cu") == \
         ["poa_pk_fusion.cu"]
+
+
+def test_build_key_names_each_macro_set():
+    """A build with -D macros (tools/k1_split's stamped K1) is a library
+    and a BUILD_LOG entry of its own."""
+    assert cuda_build.build_key("poa_align.cu") == "poa_align.cu"
+    assert cuda_build.build_key("poa_align.cu", ("POA_ALIGN_SPLIT",)) == \
+        "poa_align.cu -DPOA_ALIGN_SPLIT"

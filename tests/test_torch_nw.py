@@ -114,6 +114,25 @@ def test_nw_stats_batch_api():
     assert [t.shape[0] for t in empty] == [0, 0, 0]
 
 
+@pytest.mark.parametrize("l_max", [128, 256, 512, 1024, 2048, 4096])
+def test_launch_config_bands_cover_the_bucket(l_max):
+    """K2's bands of 32 x R rows cover every la <= l_max; the 128-512
+    buckets take one band and no scratch; longer ones one (H, M << 16 | A)
+    int32 pair per column and pair, in device memory (K2 uses no shared
+    memory), and run their pairs longest first."""
+    rows, bands, lpt = nw_kernel.launch_config(l_max)
+    assert rows in (4, 8, 16)
+    assert bands * 32 * rows >= l_max > (bands - 1) * 32 * rows
+    shape = nw_kernel.scratch_shape(3, l_max)
+    assert lpt == (l_max >= 1024)
+    if l_max <= 512:
+        assert bands == 1 and shape is None
+    else:
+        assert shape == (3, l_max + 1, 2)
+    # (M, A) share an int32: A <= 2 * l_max must stay below 65536
+    assert 2 * nw_kernel.MAX_LEN < 1 << 16 <= 2 * (nw_kernel.MAX_LEN + 1)
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     args = [torch.from_numpy(x) for x in ag.pad_pairs(EDGE, 128)]
     with pytest.raises(ValueError):

@@ -104,6 +104,34 @@ def test_plane_bytes():
     assert poa_align.plane_bytes(2, 4, 3) == 2 * (5 * 4 * 4 + 4 * 4)
 
 
+@pytest.mark.parametrize("l_max,tiles,threads", [
+    (64, 1, 96), (256, 1, 288), (512, 2, 288), (1023, 3, 352),
+    (1024, 3, 352), (2048, 3, 704), (3071, 3, 1024), (4095, 4, 1024)])
+def test_launch_threads_cover_the_columns(l_max, tiles, threads):
+    """K1's CTA: whole warps, at most 1024 threads, each owning `tiles`
+    contiguous columns (the kernel's own TILES = ceil((l_max+1) /
+    threads)), together covering the l_max+1 columns."""
+    t = poa_align.launch_threads(l_max)
+    assert (poa_align.launch_tiles(l_max), t) == (tiles, threads)
+    assert -(-(l_max + 1) // t) == tiles
+    assert t % 32 == 0 and t * tiles >= l_max + 1
+    with pytest.raises(ValueError):
+        poa_align.launch_threads(poa_align.MAX_TILES * 1024)
+
+
+@pytest.mark.parametrize("n_max,l_max,int16,ring", [
+    (512, 512, False, 16), (1024, 512, False, 16), (2048, 2048, False, 16),
+    (1024, 1024, True, 16), (2048, 4095, False, 8)])
+def test_shared_memory_fits_the_block(n_max, l_max, int16, ring):
+    """K1's staged topology and ring of recent H rows stay within the
+    232,448 bytes a block may use, with the full ring up to N = L = 2048."""
+    assert poa_align.ring_rows(n_max, l_max, int16) == ring
+    assert poa_align.smem_bytes(n_max, l_max, ring, int16) <= \
+        poa_align.SMEM_MAX
+    assert poa_align.smem_bytes(2048, 2048, 16) == \
+        16 * 2049 * 4 + 2048 * 35
+
+
 def test_pack_graph_matches_jax_and_aligns():
     """pack_graph on the NumPy-oracle PoaGraph equals the JAX package's, and
     the plain aligner on it reproduces PoaGraph.align."""
