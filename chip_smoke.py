@@ -35,15 +35,22 @@ non-zero before the final line:
   6. pk-parity: K3, K4 and K5 against their plain versions (and K4 against
      K5) on operands captured from real rounds of the port's fused build:
      the first 128 bench256 windows at rounds 1, 12 and 24, the heavy
-     windows at round 200 (ncap 3073).  Exact.
+     windows at round 200 (ncap 3073); K3 also on hand-built edge windows
+     (empty graph, empty read, 8 distinct preds beside padded slots,
+     sources past rank 0, a read longer than its graph, no sink) and on
+     random graphs at the widest bucket, ncap 3073 with l_max 512 and
+     2048.  Exact.
   7. pk-time: each of K3, K4, K5 and its plain version on the bench batch
-     the port launches (128 windows, round 12), CUDA events.
+     the port launches (128 windows, round 12), and K3 at the heavy
+     capture (32 windows, round 200); the kernels' calls queued ahead of
+     the device (tools/timing.py), the plain versions as they run.
   8. bench256 through process_window_batch(device_poa="fused"): golden
      256/256, records equal the device-POA run's, K3 and K4 launched in
      that run, no host fallback; warm windows/s best of 3; the MSA phase
      split of one stage-A batch; then one run with SVSCOPE_PK_FUSION=seq:
      golden 256/256 and K5 launched.
-  9. heavy32x400 fused: golden 32/32, windows/s (one run).
+  9. heavy32x400 fused: golden 32/32, windows/s (one run); K3's and K4's
+     main path is this run and bench256's (each counted from 0).
  10. the CLI with `--device-poa fused`: Raw.bed sha256 equals the golden.
  11. k2-parity: K2 (csrc/nw_stats.cu) against its plain torch version at
      every bucket 128 ... 4096 under both score sets (MisScore (1, 0, -1),
@@ -82,21 +89,28 @@ non-zero before the final line:
      workload (B=64, N=L=512), the kernels' calls queued ahead of the
      device (CUDA events, tools/timing.py).
  19-21. row-probe, fusebody-probe, int16-probe: every variant or op of the
-     three probes, kernel == plain at the tool's own shapes; then each
-     tool's main on the card (the probes' main path, launches counted from
-     0), which times every variant against its plain version, the
-     kernels' calls queued ahead of the device.
+     three probes, kernel == plain at the tool's own shapes (the int16
+     ops on (262144, 128) arrays); then each tool's main on the card (the
+     probes' main path, launches counted from 0), which times every
+     variant against its plain version, the kernels' calls queued ahead of
+     the device, and max16 and roll16 beside torch.maximum and torch.roll.
 
 With `--ab TREE ...` (source trees' roots, relative to this script; "."
-is this checkout), K1 at the k1-time and heavy shapes and K2 at every
-misscore4096 bucket are then timed in each tree's own build, a process per
-tree, on the same saved inputs, each tree twice in turns (phase `ab`).
+is this checkout), K1 at the k1-time and heavy shapes, K2 at every
+misscore4096 bucket, K3 on the bench round-12 and heavy round-200
+captures, and every int16 probe op at (262144, 128) with torch.maximum
+and torch.roll beside them are then timed in each tree's own build, a
+process per tree, on the same saved inputs, calls queued ahead, each tree
+twice in turns (phase `ab`).  A tree whose K3 still takes the chain-row
+flags gets them, rebuilt from the pk layout (chain_flags).
 
 Then one JSON line listing every kernel with its launches on the main path,
 error, times and bound (a probe's row: the sums over its variants, which
-it lists under "variants"; K1's row adds its launches per workload and the
-heavy shape, K2's its time per bucket launch), the card line, and the last
-line {"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
+it lists under "variants", with the library call's time where there is
+one; K1's, K3's and K4's rows add their launches per workload, K1's and
+K3's the heavy shape as timed, K2's its time per bucket launch), the card
+line, and the last line
+{"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
 package (checked at the end).
 """
 import hashlib
@@ -123,6 +137,9 @@ PK_KERNELS = {
 }
 PK_BENCH_ROUNDS = (0, 11, 23)      # rounds 1, 12 and 24
 PK_HEAVY_ROUND = 199               # round 200
+PK_NCAP_MAX = 3073                 # the widest pk bucket (N_LADDER[-1] + 1)
+PK_WIDE_SHAPES = ((512, 32), (2048, 8))   # (l_max, B) of K3 at that ncap
+INT16_ROWS = 262144                # the int16 probe's timing arrays
 PK_BATCH = 128                     # stage A's chunk (PIPELINE_CHUNK)
 K2_NAME = "nw_stats (K2, batched NW alignment stats: score, matches, length)"
 K2_REPLACES = "svscope_tpu/ops/nw_pallas.py:59"
@@ -257,6 +274,70 @@ def k1_edge_case(B=4, N=512, L=64):
     for w in range(B):
         seqs[w, :lens[w]] = rng.choice(acgt, int(lens[w]))
     return chars, preds, sinks, nn, seqs, lens
+
+
+def k3_edge_case(N=80, L=64):
+    """Hand-built windows at the edges of K3's layout (numpy, K1's layout
+    as random_graph_case's last item; pk_layout converts them), B = 8: 0,
+    an empty graph (nn 0) under a 40 bp read; 1, an empty read (lb 0) on a
+    30-node chain; 2, ranks 0-7 without preds (sources past rank 0), rank
+    8 with those 8 distinct preds, rank 30 with 3 preds beside 5 padded
+    slots; 3, a 60 bp read on a 20-node chain; 4, the graph of 2 with no
+    sink; 5, a chain with a second source at rank 15 (rank 14 a sink);
+    6-7, chains with a bubble every 10 ranks under reads filling l_max."""
+    import numpy as np
+    rng = np.random.default_rng(23)
+    B = 8
+    chars = rng.integers(0, 4, (B, N)).astype(np.uint8)
+    preds = np.full((B, N, 8), -1, np.int32)
+    sinks = np.zeros((B, N), bool)
+    nn = np.array([0, 30, 60, 20, 60, 40, 70, 70], np.int32)
+    lens = np.array([40, 0, 50, 60, 45, 40, L, L], np.int32)
+    for w in range(B):
+        for r in range(1, int(nn[w])):
+            preds[w, r, 0] = r - 1
+            if w >= 6 and r % 10 == 0:
+                preds[w, r, 1] = r - 3
+        if nn[w]:
+            sinks[w, nn[w] - 1] = True
+    for w in (2, 4):
+        preds[w, :8] = -1
+        preds[w, 8] = np.arange(8)
+        preds[w, 30, :3] = (29, 27, 25)
+    sinks[4] = False
+    preds[5, 15] = -1
+    sinks[5, 14] = True
+    seqs = rng.integers(0, 4, (B, L)).astype(np.uint8)
+    seqs[np.arange(L)[None, :] >= lens[:, None]] = 0
+    return chars, preds, sinks, nn, seqs, lens
+
+
+def pk_layout(chars, preds, sinks, nn, seqs, lens, l_max):
+    """Windows in K1's layout (numpy, -1 in empty pred slots) as K3's
+    operands, laid out as ops/poa_fused.pk_round_prep lays out a round:
+    (charsr, sinksr, predsp, seqv, lb, nn_eff) int32, empty slots holding
+    slot 0, seqv's column 0 the pad 255.  nn_eff is nn as given."""
+    import numpy as np
+    B, _N = chars.shape
+    preds = np.asarray(preds, np.int32)
+    seqv = np.full((B, l_max + 1), 255, np.int32)
+    seqv[:, 1:1 + seqs.shape[1]] = seqs
+    return tuple(np.ascontiguousarray(a, dtype=np.int32) for a in (
+        chars, sinks, np.where(preds < 0, preds[..., :1], preds), seqv,
+        lens, nn))
+
+
+def chain_flags(predsp, nn_eff):
+    """The chain-row flags that JAX's align_tb_call (and K3 before it
+    found chain rows itself) takes, from pk-layout preds (numpy): one pred
+    (slot 1 a copy of slot 0) of rank r-1, or rank 0 without preds, or a
+    rank past nn_eff.  (B, N) int32."""
+    import numpy as np
+    ri = np.arange(predsp.shape[1])[None, :]
+    p0 = predsp[..., 0]
+    single = predsp[..., 1] == p0
+    return ((single & ((p0 == ri - 1) | ((ri == 0) & (p0 < 0))))
+            | (ri >= np.asarray(nn_eff).reshape(-1, 1))).astype(np.int32)
 
 
 def k2_edge_pairs(bucket, seed):
@@ -541,15 +622,14 @@ def pk_compare(ops, st, an, asx, ke):
     K4 against K5.  Returns {kernel: max abs error}."""
     import torch
     from svscope_tpu_torch.ops import poa_fused_kernel as tpk
-    charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = ops
-    k3 = tpk.align_tb_cuda(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff)
+    *k3_ops, gminr = ops
+    k3 = tpk.align_tb_cuda(*k3_ops)
     torch.cuda.synchronize()
-    p3 = tpk.align_tb_reference(charsr, sinksr, predsp, chainw, seqv, lb,
-                                nn_eff)
+    p3 = tpk.align_tb_reference(*k3_ops)
     errs = {"K3": _max_err(k3, p3)}
     if _max_err(k3, (an, asx, ke)):
         raise RuntimeError("K3 differs from the build's own K3 output")
-    seq5 = seqv[:, 1:].contiguous()
+    seq5 = k3_ops[3][:, 1:].contiguous()     # seqv without its pad column
     out = {}
     for name, fn, order in (("K4", tpk.fusion_cuda, "lockstep"),
                             ("K5", tpk.fusion_cuda, "seq"),
@@ -566,14 +646,30 @@ def pk_compare(ops, st, an, asx, ke):
     return errs
 
 
+def k3_parity(arrs, dev, what):
+    """K3 == its plain version on pk-layout numpy operands (pk_layout's
+    tuple); returns the max error (0)."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    args = [torch.from_numpy(a).to(dev) for a in arrs]
+    got = tpk.align_tb_cuda(*args)
+    torch.cuda.synchronize()
+    err = _max_err(got, tpk.align_tb_reference(*args))
+    if err:
+        raise RuntimeError(f"K3 != plain on {what} (max error {err})")
+    return err
+
+
 def check_pk_kernels(dev):
-    """Phase 6: K3/K4/K5 == plain on captured real rounds.  Returns the max
-    error per kernel and the bench round-12 capture for phase 7."""
+    """Phase 6: K3/K4/K5 == plain on captured real rounds; K3 == plain on
+    the edge windows and on random graphs at N = 3073.  Returns the max
+    error per kernel and the bench round-12 and heavy round-200 captures
+    for phase 7."""
     import localgraph_golden as lgg
     max_err = {"K3": 0, "K4": 0, "K5": 0}
     cases = (("bench256", PK_BATCH, PK_BENCH_ROUNDS),
              ("heavy32x400", None, (PK_HEAVY_ROUND,)))
-    bench_cap = None
+    keep = {}
     for name, n, rounds in cases:
         t0 = time.perf_counter()
         wins = lgg.make_workload(name)[:n]
@@ -591,61 +687,91 @@ def check_pk_kernels(dev):
                   f"B={len(wins)} round {r + 1}: max nodes "
                   f"{int(st.nn.max())}, K3==plain, K4==plain, K5==plain, "
                   f"K4==K5 (errors {errs})")
-        if name == "bench256":
-            bench_cap = caps[PK_BENCH_ROUNDS[1]]
-    return max_err, bench_cap
-
-
-def cuda_ms_each(setup, fn, reps):
-    """Mean ms of fn() over reps, CUDA events around each call only
-    (setup() runs outside the timed span), after one warm-up call."""
-    import torch
-    fn(*setup())
-    total = 0.0
-    for _ in range(reps):
-        args = setup()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn(*args)
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
-
-
-def time_pk_kernels(cap):
-    """Phase 7: each pk kernel and its plain version on the bench batch."""
-    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+        keep[name] = caps[PK_BENCH_ROUNDS[1] if name == "bench256"
+                          else PK_HEAVY_ROUND]
     t0 = time.perf_counter()
-    ops, st, an, asx, ke = cap
-    charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = ops
+    err = k3_parity(pk_layout(*k3_edge_case(), 64), dev, "edge windows")
+    max_err["K3"] = max(max_err["K3"], err)
+    phase("pk-parity", t0, "K3 edge windows N=80 l_max=64 B=8 (empty "
+          "graph; empty read; 8 distinct preds beside padded slots; sources "
+          "past rank 0; a read longer than its graph; no sink): K3==plain")
+    for l_max, B in PK_WIDE_SHAPES:
+        t0 = time.perf_counter()
+        arrs = random_graph_case(PK_NCAP_MAX, l_max, B, seed=l_max + B)[3]
+        err = k3_parity(pk_layout(*arrs, l_max), dev, f"N={PK_NCAP_MAX} "
+                        f"l_max={l_max}")
+        max_err["K3"] = max(max_err["K3"], err)
+        phase("pk-parity", t0, f"K3 random graphs N={PK_NCAP_MAX} "
+              f"l_max={l_max} B={B} (nodes {int(arrs[3].min())}-"
+              f"{int(arrs[3].max())}): K3==plain")
+    return max_err, keep["bench256"], keep["heavy32x400"]
+
+
+def k3_args(cap):
+    """K3's operands of one captured round (pk_round_prep's ops but gminr)."""
+    return cap[0][:6]
+
+
+def k3_shape(cap):
+    """B, N and l_max of one captured round."""
+    charsr, _sinksr, _predsp, seqv, _lb, _nn_eff = k3_args(cap)
+    return {"B": charsr.shape[0], "N": charsr.shape[1],
+            "l_max": seqv.shape[1] - 1}
+
+
+def k3_bound(cap):
+    """K3's bound on one captured round: its inputs read once, an/asx/ke
+    written once; integer ops of the DP over each window's own ranks and
+    read."""
+    _charsr, _sinksr, predsp, _seqv, lb, nn_eff = args = k3_args(cap)
+    return bound(tensor_bytes(*args, *cap[2:]),
+                 poa_ops(predsp, nn_eff, lb, slot0_copies=True))
+
+
+def time_pk_kernels(bench_cap, heavy_cap, dev):
+    """Phase 7: each pk kernel and its plain version on the bench batch the
+    port launches (128 windows, round 12), and K3 at the heavy capture
+    (32 windows, round 200): kernel calls queued ahead of the device
+    (tools/timing.py), plain versions as they run."""
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    from svscope_tpu_torch.tools.timing import time_call, time_each
+    t0 = time.perf_counter()
+    ops, st, an, asx, ke = bench_cap
+    _charsr, _sinksr, _predsp, seqv, lb, nn_eff, gminr = ops
     seq5 = seqv[:, 1:].contiguous()
-    k3_args = (charsr, sinksr, predsp, chainw, seqv, lb, nn_eff)
-    times = {"K3": (cuda_ms_each(lambda: k3_args, tpk.align_tb_cuda, 20),
-                    cuda_ms_each(lambda: k3_args, tpk.align_tb_reference,
-                                 2))}
+    times, bounds = {}, {}
+    for name, cap, plain_reps in (("K3", bench_cap, 2),
+                                  ("K3 heavy", heavy_cap, 1)):
+        args = k3_args(cap)
+        times[name] = (
+            time_call(lambda: tpk.align_tb_cuda(*args), dev, 20, True),
+            time_call(lambda: tpk.align_tb_reference(*args), dev,
+                      plain_reps, False))
+        bounds[name] = k3_bound(cap)
 
     def fuse_setup(order):
         return lambda: (an, asx, ke, gminr, seq5, st.clone(), order)
     for k, order, reps in (("K4", "lockstep", 2), ("K5", "seq", 1)):
-        times[k] = (cuda_ms_each(fuse_setup(order), tpk.fusion_cuda, 20),
-                    cuda_ms_each(fuse_setup(order), tpk.fusion_reference,
-                                 reps))
+        times[k] = (time_each(fuse_setup(order), tpk.fusion_cuda, dev, 20,
+                              True),
+                    time_each(fuse_setup(order), tpk.fusion_reference, dev,
+                              reps, False))
     cells = int((nn_eff.long() * lb.long()).sum())
     entries = int((an.shape[1] - 1 - ke.long()).sum())
-    bounds = {"K3": bound(tensor_bytes(*k3_args, an, asx, ke),
-                          poa_ops(predsp, nn_eff, lb, slot0_copies=True))}
     # fusion: alignment and graph state read once, path (B, l_max) int32
     # and graph state written once; its integer work is a few ops per entry
     state = st.tensors()
     fuse_bytes = tensor_bytes(an, asx, ke, gminr, seq5, *state, *state) \
         + seq5.numel() * 4
     bounds["K4"] = bounds["K5"] = bound(fuse_bytes, 0)
-    phase("pk-time", t0, f"B={charsr.shape[0]} N={charsr.shape[1]} "
-          f"l_max={seqv.shape[1] - 1} round 12 ({cells} DP cells, "
-          f"{entries} alignment entries): " + ", ".join(
+    hv = k3_shape(heavy_cap)
+    _c, _s, _p, _q, h_lb, h_nn = k3_args(heavy_cap)
+    phase("pk-time", t0, f"B={seqv.shape[0]} N={gminr.shape[1]} "
+          f"l_max={seqv.shape[1] - 1} round {PK_BENCH_ROUNDS[1] + 1} "
+          f"({cells} DP cells, {entries} alignment entries); K3 heavy "
+          f"B={hv['B']} N={hv['N']} l_max={hv['l_max']} round "
+          f"{PK_HEAVY_ROUND + 1} ({int((h_nn.long() * h_lb.long()).sum())} "
+          "DP cells); kernel calls queued ahead of the device: " + ", ".join(
               f"{k} kernel {a:.4f} ms plain {b:.4f} ms bound "
               f"{bounds[k][0]:.4f} ms ({bounds[k][1]})" for k, (a, b) in
               times.items()))
@@ -1195,7 +1321,7 @@ def check_int16_probe(dev):
     import torch
     from svscope_tpu_torch.tools.probe import int16_probe as ip
     t0 = time.perf_counter()
-    rows = 262144
+    rows = INT16_ROWS
     big = ip.large_inputs(rows, dev)
     errs = {}
     for op in ip.ALL_OPS:
@@ -1224,34 +1350,50 @@ def check_int16_probe(dev):
     return out
 
 
-# A/B of K1 and K2 between source trees (--ab): each tree's own wrappers
-# and kernels, in a process of its own, on inputs this script saved; only
-# align_batch_cuda, nw_stats_cuda and tools.timing.time_call, which every
-# tree with the kernel measurement tools (tools/timing.py) has, are used.
+# A/B of the redesigned kernels between source trees (--ab): each tree's
+# own wrappers and kernels, in a process of its own, on inputs this script
+# saved; only align_batch_cuda, nw_stats_cuda, align_tb_cuda, int16_op_cuda
+# and tools.timing.time_call, which every tree with the kernel measurement
+# tools (tools/timing.py) has with these signatures, are used; a tree whose
+# align_tb_cuda still takes the chain-row flags gets them as its fourth
+# argument (the K3 cases carry them last).  The int16 cases carry
+# torch.maximum and torch.roll on the same arrays beside them.
 AB_SNIPPET = """
-import json, sys, torch
+import inspect, json, sys, torch
 sys.path.insert(0, sys.argv[1])
-from svscope_tpu_torch.ops import nw_kernel, poa_align
+from svscope_tpu_torch.ops import nw_kernel, poa_align, poa_fused_kernel
+from svscope_tpu_torch.tools.probe import int16_probe
 from svscope_tpu_torch.tools.timing import time_call
 dev = torch.device("cuda", 0)
+k3 = poa_fused_kernel.align_tb_cuda
+k3_chainw = "chainw" in inspect.signature(k3).parameters
+fns = {"k1": lambda a, w: poa_align.align_batch_cuda(*a, w),
+       "k2": lambda a, w: nw_kernel.nw_stats_cuda(*a, w),
+       "k3": lambda a, w: (k3(*a[:3], a[6], *a[3:6]) if k3_chainw
+                           else k3(*a[:6])),
+       "i16": lambda a, w: int16_probe.int16_op_cuda(w, *a),
+       "torch.maximum": lambda a, w: torch.maximum(a[0], a[1]),
+       "torch.roll": lambda a, w: torch.roll(a[0], 1, 1)}
 out = {}
 for name, (kind, args, width, reps) in torch.load(sys.argv[2]).items():
     a = [t.to(dev) for t in args]
-    fn = (poa_align.align_batch_cuda if kind == "k1"
-          else nw_kernel.nw_stats_cuda)
-    out[name] = time_call(lambda: fn(*a, width), dev, reps, queued=True)
+    out[name] = time_call(lambda: fns[kind](a, width), dev, reps, queued=True)
 print(json.dumps(out))
 """
 
 
-def ab_inputs(path, misscore_groups, misscore_pairs):
-    """Save the A/B cases: K1 at the k1-time and heavy shapes, K2 per
-    bucket of misscore4096 (CPU tensors)."""
+def ab_inputs(path, misscore_groups, misscore_pairs, k3_cases):
+    """Save the A/B cases (CPU tensors): K1 at the k1-time and heavy
+    shapes, K2 per bucket of misscore4096, K3 on the captured rounds of
+    `k3_cases` (their chain-row flags last, for trees that take them),
+    every int16 probe op and torch.maximum / torch.roll on the
+    probe's (262144, 128) timing arrays."""
     import numpy as np
     import torch
     import alnfeature_golden as ag
     from svscope_tpu_torch.ops import poa_device
     from svscope_tpu_torch.tools import workloads as tw
+    from svscope_tpu_torch.tools.probe import int16_probe as ip
     N, L, B = TIME_SHAPE
     cases = {}
     for name, arrs, width in (
@@ -1264,17 +1406,26 @@ def ab_inputs(path, misscore_groups, misscore_pairs):
         cases[f"k2 misscore4096 bucket {bucket}"] = (
             "k2", [torch.from_numpy(np.ascontiguousarray(x))
                    for x in ag.pad_pairs(sub, bucket)], bucket, 5)
+    for name, args in k3_cases.items():
+        chainw = chain_flags(args[2].numpy(), args[5].numpy())
+        cases[f"k3 {name}"] = ("k3", [*args, torch.from_numpy(chainw)], 0,
+                               20)
+    big = ip.large_inputs(INT16_ROWS, "cpu")
+    for op in ip.ALL_OPS:
+        cases[f"i16 {op}"] = ("i16", big, op, 20)
+    for lib in ("torch.maximum", "torch.roll"):
+        cases[f"i16 {lib}"] = (lib, big, 0, 20)
     torch.save(cases, path)
 
 
-def run_ab(trees, misscore_groups, misscore_pairs):
-    """K1's and K2's times in each tree of `trees` (this checkout is ".")
+def run_ab(trees, misscore_groups, misscore_pairs, k3_cases):
+    """The A/B cases' times in each tree of `trees` (this checkout is ".")
     on the same inputs, in turns: each tree, then each again in reverse
-    order.  Prints one line per turn and the per-case means."""
+    order.  Prints one line per turn and the per-case times."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "ab_inputs.pt")
-        ab_inputs(path, misscore_groups, misscore_pairs)
+        ab_inputs(path, misscore_groups, misscore_pairs, k3_cases)
         res = {}
         for tree in list(trees) + list(reversed(trees)):
             root = os.path.abspath(os.path.join(HERE, tree))
@@ -1324,8 +1475,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--ab", nargs="+", metavar="TREE", default=None,
-                    help="after the phases, time K1 and K2 of each source "
-                    "tree (a checkout's root, relative to this script; '.' "
+                    help="after the phases, time K1, K2, K3 and the int16 "
+                    "probe's ops of each source tree (a checkout's root, relative to this script; '.' "
                     "is this one) in turns on the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1362,9 +1513,16 @@ def main(argv=None):
     launches = bench_launches + heavy_launches
     check_cli(golden)
 
-    pk_err, bench_cap = check_pk_kernels(dev)
-    pk_ms, pk_bounds = time_pk_kernels(bench_cap)
-    del bench_cap
+    pk_err, bench_cap, heavy_cap = check_pk_kernels(dev)
+    pk_ms, pk_bounds = time_pk_kernels(bench_cap, heavy_cap, dev)
+    k3_ab = {}
+    for name, r, cap in (("bench256", PK_BENCH_ROUNDS[1], bench_cap),
+                         ("heavy32x400", PK_HEAVY_ROUND, heavy_cap)):
+        s = k3_shape(cap)
+        k3_ab[f"{name} round {r + 1} B={s['B']} N={s['N']} "
+              f"l_max={s['l_max']}"] = [t.cpu() for t in k3_args(cap)]
+    heavy_shape = k3_shape(heavy_cap)
+    del bench_cap, heavy_cap
     pk_launches, _recs, _ws = run_fused_workload("bench256", golden, dev, 3,
                                                  bench_recs)
     fused_phase_split(dev)
@@ -1375,7 +1533,7 @@ def main(argv=None):
     finally:
         os.environ.pop("SVSCOPE_PK_FUSION")
     pk_launches["K5"] = seq_launches["K5"]
-    run_fused_workload("heavy32x400", golden, dev, 1)
+    heavy_pk, _recs, _ws = run_fused_workload("heavy32x400", golden, dev, 1)
     check_cli(golden, ("--device-poa", "fused"), "cli-fused")
 
     k2_err, k2_pairs, k2_groups = check_k2(dev)
@@ -1393,7 +1551,7 @@ def main(argv=None):
               "fusebody": check_fusebody_probe(dev),
               "int16": check_int16_probe(dev)}
     if args.ab:
-        run_ab(args.ab, k2_groups, k2_pairs)
+        run_ab(args.ab, k2_groups, k2_pairs, k3_ab)
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "svscope_tpu"))
@@ -1425,8 +1583,22 @@ def main(argv=None):
                row(K1_16_NAME, "poa_align.cu", K1_16_REPLACES, k16_launches,
                    k16_err, k16_ms, k16_plain_ms, k16_bound)]
     for k, (name, src, replaces) in PK_KERNELS.items():
-        kernels.append(row(name, src, replaces, pk_launches[k], pk_err[k],
-                           pk_ms[k][0], pk_ms[k][1], pk_bounds[k]))
+        entry = row(name, src, replaces, pk_launches[k], pk_err[k],
+                    pk_ms[k][0], pk_ms[k][1], pk_bounds[k])
+        if k in ("K3", "K4"):
+            # the main path: both fused workloads (lockstep, the default)
+            entry["launches"] += heavy_pk[k]
+            entry["launches_bench256"] = pk_launches[k]
+            entry["launches_heavy32x400"] = heavy_pk[k]
+        if k == "K3":
+            # K3 at the heavy capture, as timed
+            entry["heavy_shape"] = {**heavy_shape,
+                                    "round": PK_HEAVY_ROUND + 1,
+                                    "ms": pk_ms["K3 heavy"][0],
+                                    "plain_ms": pk_ms["K3 heavy"][1],
+                                    "bound_ms": pk_bounds["K3 heavy"][0],
+                                    "bound_by": pk_bounds["K3 heavy"][1]}
+        kernels.append(entry)
     k2 = row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches, k2_err, k2_ms,
              k2_plain_ms, k2_bound)
     # ms is misscore4096's six bucket launches; per launch at each bucket of

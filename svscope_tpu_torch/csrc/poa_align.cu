@@ -1,443 +1,41 @@
 // K1 on Hopper: batched POA graph-vs-read global alignment.
 //
 // Replaces svscope_tpu/ops/poa_pallas.py::_poa_kernel (the TPU kernel the
-// localGraph engine runs for both POA steps of every chunk).  Same
-// recurrence, scoring and tie-breaks, checked against the plain torch
-// version in svscope_tpu_torch/ops/poa_device.py::align_batch_reference:
-//
-//   * NW in topological-rank space, m=5 n=-4 g=-8.  H row 0 is the virtual
-//     start row (g*j for j <= seq_len); row r+1 is node rank r.
-//   * A rank's predecessor row is the max over its pred slots' rows.  Empty
-//     slots count as copies of slot 0, a rank with no preds reads row 0.
-//   * base[j] = max(mp[j-1] + sub, mp[j] + g) for 1 <= j <= seq_len,
-//     mp[0] + g at j = 0; the in-row gap chain H[j] = max(base[j], H[j-1] + g)
-//     is a block-wide inclusive max-scan of base[j] - g*j, + g*j.
-//   * Direction byte per cell: lowest diag slot (0-7), else lowest up slot
-//     (8-15), else left (16).
-//   * Best sink at column seq_len, strict > in rank order from (NEG, 0);
-//     traceback from (brank+1, seq_len, out_len-1) until j == 0 or k < 0.
-//
-// What bounds it: one window's serial row chain, a latency, not a
-// throughput (at B <= 132 a launch is one wave of one CTA per window).  So
-// the design cuts what each row waits for (measured part by part with
-// tools/k1_split.py, PERF.md section 5):
-//
-//   * The window's topology is staged in shared memory once, by all
-//     threads: per rank its distinct pred rows in slot order with their
-//     slots (uint16 row | slot << 13; slots equal to slot 0 are its padding
-//     copies and are skipped, slot 0 winning their ties), the pred row of
-//     each of its 8 slots (for the traceback), its node char and sink
-//     flag: N x 35 bytes, 71,680 at N = 2048.
-//   * Thread t owns TILES contiguous columns t*TILES ... and keeps their
-//     read chars and the previous row's H values in registers.  A chain
-//     row (pred row i-1) reads nothing: its own columns are in registers,
-//     and column t*TILES - 1 of row i-1 is the exclusive prefix max the
-//     thread got from row i-1's scan (+ g*j).  The last `ring` rows (16,
-//     fewer where they do not fit) are also kept in a ring in shared
-//     memory, so a pred row a few ranks back (a bubble's other branch) is
-//     a shared-memory read; older pred rows come from the H plane in device
-//     memory (L2).  Each thread reads its own columns, the left neighbour
-//     column comes by a warp shuffle.
-//   * One pass per row: while forming the pred max per column the thread
-//     keeps the lowest slot reaching it.  A cell is diag only if h equals
-//     max-over-slots(H[j-1]) + sub, and then the lowest slot reaching that
-//     max is its slot; the same for up.  So the direction byte is written
-//     with H, and no pred row is read twice.
-//   * One block barrier per row: a thread's TILES columns are scanned in
-//     registers, warps by shuffles, and each warp reduces the totals of the
-//     warps before it itself (poa_dp::block_excl_max_1bar, the warp totals
-//     double-buffered by row parity).
-//   * Columns past seq_len are neither computed nor stored (no cell <=
-//     seq_len depends on them).
-//   * The traceback is one warp: it stages a 32 x 32 tile of the direction
-//     plane (rows i-1 ... i-32, columns j-31 ... j) with 32 independent
-//     loads, then lane 0 walks the tile from shared memory until the path
-//     leaves it, taking a pred's row from the staged per-slot table.  Two
-//     dependent device-memory reads per step become one per ~32 steps.
-//
-// The H plane ((N+1) x (L+1)) and the direction plane (N x (L+1) int8)
-// stay in device memory: at N = 1024, L = 512 one window's int32 plane is
-// ~2 MB, more than an SM holds.  Launch configuration (ops/poa_align.py::
-// launch_threads): TILES columns a thread, 1-4, and the fewest whole warps
-// that cover l_max+1 columns.  A row costs each thread a fixed share (the
-// entry loop, the scan, the barrier) plus a little per column, so about
-// 300 threads (TILES = 2 at L = 512, 3 at L = 1024 and 2048) beat one
-// thread a column.
+// localGraph engine runs for both POA steps of every chunk), checked
+// against the plain torch version in
+// svscope_tpu_torch/ops/poa_device.py::align_batch_reference.  The kernel
+// is the row pass of poa_row.cuh (its recurrence, tie-breaks, design and
+// what bounds it are described there), on K1's layout: uint8 chars, sinks
+// and reads of stride L, -1 in an empty pred slot, an alignment buffer of
+// N + l_max entries and the score.
 //
 // K1-int16 (poa_align16_launch) replaces the same TPU kernel's int16 variant
-// (svscope_tpu/ops/poa_pallas.py:54-60, :329-331, int16_mode): the kernel is
-// templated on the storage type of the H plane (int16_t) and on the
-// sentinel (NEG16 = -20000); the arithmetic and the max-scan stay in int32
-// registers.  The caller gates N, l_max <= 1024: every legal H value is
-// then >= -8 * (N + l_max) >= -16384 > NEG16, so the outputs equal the
-// int32 kernel's except the score of a window with no valid sink, which is
-// NEG16.
+// (svscope_tpu/ops/poa_pallas.py:54-60, :329-331, int16_mode): the H plane
+// in int16_t with the sentinel NEG16 = -20000; the arithmetic and the
+// max-scan stay in int32 registers.  The caller gates N, l_max <= 1024:
+// every legal H value is then >= -8 * (N + l_max) >= -16384 > NEG16, so the
+// outputs equal the int32 kernel's except the score of a window with no
+// valid sink, which is NEG16.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "poa_dp.cuh"
+#include "poa_row.cuh"
 
 namespace {
 
-using namespace poa_dp;
+using poa_row::RowArgs;
 
 constexpr int kNeg16 = -20000;         // K1-int16's sentinel
-constexpr int kSlotShift = 13;         // staged entry: row | slot << 13
-constexpr int kRowMask = (1 << kSlotShift) - 1;
-constexpr int kTile = 32;              // traceback tile: 32 rows x 32 cols
 
-// clock64() split of a CTA's time (thread 0's clock), kept only in the
-// build with -DPOA_ALIGN_SPLIT (tools/k1_split.py): cycles per part, in
-// the order of k1_split.PARTS (part 1, the per-row pred setup, went into
-// part 0, the prologue; part 4 holds the row's H, direction and sink).
-constexpr int kSplitParts = 6;
-#ifdef POA_ALIGN_SPLIT
-#define SPLIT_BEGIN long long split_acc[kSplitParts] = {}; \
-  long long split_t = clock64();
-#define SPLIT(k) if (tid == 0) { const long long t_ = clock64(); \
-  split_acc[k] += t_ - split_t; split_t = t_; }
-#define SPLIT_END if (tid == 0) for (int k_ = 0; k_ < kSplitParts; ++k_) \
-  split[(size_t)b * kSplitParts + k_] = split_acc[k_];
-#else
-#define SPLIT_BEGIN
-#define SPLIT(k)
-#define SPLIT_END
-#endif
-
-constexpr int kRingMax = 16;           // recent H rows kept in shared memory
-constexpr size_t kSmemMax = 232448;    // dynamic shared memory of a block
-
-// Dynamic shared memory of a CTA: the ring of `ring` H rows, then per rank
-// the staged entries and the per-slot pred rows (uint16 each), the entry
-// count, the node char and the sink flag.
-size_t smem_bytes(int N, int l_max, int ring, size_t h_bytes) {
-  return (size_t)ring * (l_max + 1) * h_bytes
-      + (size_t)N * (2 * kMaxPreds * sizeof(uint16_t) + 3);
-}
-
-// HT: storage type of the H plane; Neg: the sentinel; TILES: columns a
-// thread.
-// Threads a CTA may have with TILES columns a thread (the launch bound, so
-// the registers a thread may use): 1 or 2 columns serve rows of up to 640
-// columns on at most 320 threads (ops/poa_align.py::launch_tiles), 3 or 4
-// the wider rows on up to 1024.
-constexpr int max_threads(int tiles) { return tiles <= 2 ? 512 : 1024; }
-
-template <typename HT, int Neg, int TILES>
-__global__ void __launch_bounds__(max_threads(TILES))
-poa_align_kernel(const uint8_t* __restrict__ chars,     // (B, N)
-                 const int32_t* __restrict__ preds,     // (B, N, 8), -1 empty
-                 const uint8_t* __restrict__ sinks,     // (B, N) 0/1
-                 const int32_t* __restrict__ n_nodes,   // (B,)
-                 const uint8_t* __restrict__ seqs,      // (B, L)
-                 const int32_t* __restrict__ seq_lens,  // (B,)
-                 HT* __restrict__ H,                    // (B, N+1, l1)
-                 int8_t* __restrict__ D,                // (B, N, l1)
-                 int32_t* __restrict__ an,              // (B, out_len)
-                 int32_t* __restrict__ asp,             // (B, out_len)
-                 int32_t* __restrict__ k_end,           // (B,)
-                 int32_t* __restrict__ score,           // (B,)
-                 long long* __restrict__ split,         // (B, kSplitParts)
-                 int N, int L, int l_max, int ring) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int l1 = l_max + 1;
-  HT* s_ring = reinterpret_cast<HT*>(smem);               // (ring, l1)
-  uint16_t* s_ent =
-      reinterpret_cast<uint16_t*>(s_ring + (size_t)ring * l1);  // (N, 8)
-  uint16_t* s_prow = s_ent + (size_t)N * kMaxPreds;       // (N, 8)
-  uint8_t* s_np = reinterpret_cast<uint8_t*>(s_prow + (size_t)N * kMaxPreds);
-  uint8_t* s_ch = s_np + N;
-  uint8_t* s_sk = s_ch + N;
-  __shared__ int warp_tot[2 * 32];
-  __shared__ int s_best[2];
-  __shared__ int8_t tile[kTile][kTile];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int T = blockDim.x;
-  const int lane = tid & 31;
-  const int wid = tid >> 5;
-  SPLIT_BEGIN
-  const int nn = n_nodes[b];
-  const int lb = seq_lens[b];
-  const uint8_t* seq = seqs + (size_t)b * L;
-  const uint8_t* chb = chars + (size_t)b * N;
-  const uint8_t* skb = sinks + (size_t)b * N;
-  const int32_t* pb = preds + (size_t)b * N * kMaxPreds;
-  HT* Hb = H + (size_t)b * (N + 1) * l1;
-  int8_t* Db = D + (size_t)b * N * l1;
-
-  // stage the topology: distinct pred rows in slot order, chars, sinks
-  for (int r = tid; r < nn; r += T) {
-    const int4* q4 = reinterpret_cast<const int4*>(pb + (size_t)r * kMaxPreds);
-    const int4 qa = q4[0];
-    const int4 qb = q4[1];
-    const int q[kMaxPreds] = {qa.x, qa.y, qa.z, qa.w, qb.x, qb.y, qb.z, qb.w};
-    uint16_t* e = s_ent + r * kMaxPreds;
-    uint16_t* pr = s_prow + r * kMaxPreds;
-    int np = 0;
-    e[np++] = (uint16_t)(max(q[0], -1) + 1);
-#pragma unroll
-    for (int p = 0; p < kMaxPreds; ++p) {
-      if (p > 0 && q[p] >= 0 && q[p] != q[0]) {
-        e[np++] = (uint16_t)((q[p] + 1) | (p << kSlotShift));
-      }
-      pr[p] = (uint16_t)(max(q[p] >= 0 ? q[p] : q[0], -1) + 1);
-    }
-    s_np[r] = (uint8_t)np;
-    s_ch[r] = chb[r];
-    s_sk[r] = skb[r];
-  }
-  if (tid == 0) {
-    s_best[0] = Neg;
-    s_best[1] = 0;
-  }
-
-  // this thread's columns: read chars and row 0 in registers
-  const int j0 = tid * TILES;
-  int sq[TILES];
-  int hrow[TILES];
-#pragma unroll
-  for (int t = 0; t < TILES; ++t) {
-    const int j = j0 + t;
-    sq[t] = (j >= 1 && j <= lb) ? (int)seq[j - 1] : -1;
-    hrow[t] = kGap * j;
-    if (j <= lb) {
-      Hb[j] = (HT)hrow[t];
-      s_ring[j] = (HT)hrow[t];
-    }
-  }
-  int hleft = kGap * (j0 - 1);   // H[i-1][j0-1], read only when j0 >= 1
-  int bval = Neg;                // best sink: the owner of column lb only
-  int brank = 0;
-  __syncthreads();
-
-  SPLIT(0)
-
-  for (int r = 0; r < nn; ++r) {
-    const int i = r + 1;
-    const int np = s_np[r];
-    const int ch = s_ch[r];
-    const uint16_t* e = s_ent + r * kMaxPreds;
-    // pred max over the staged rows, and its lowest slot, at the thread's
-    // columns and at column j0 - 1
-    int m[TILES], sl[TILES];
-    int mL = kScanId;
-    int slL = 0;
-#pragma unroll
-    for (int t = 0; t < TILES; ++t) {
-      m[t] = kScanId;
-      sl[t] = 0;
-    }
-    for (int k = 0; k < np; ++k) {
-      const int ent = e[k];
-      const int row = ent & kRowMask;
-      const int slot = ent >> kSlotShift;
-      int v[TILES];
-      int vL;
-      if (row == i - 1) {
-        vL = hleft;
-#pragma unroll
-        for (int t = 0; t < TILES; ++t) v[t] = hrow[t];
-      } else {
-        // a recent row from the ring in shared memory, an older one from L2
-        const HT* Hr = row > i - 1 - ring ? s_ring + (row & (ring - 1)) * l1
-                                          : Hb + (size_t)row * l1;
-#pragma unroll
-        for (int t = 0; t < TILES; ++t) {
-          v[t] = j0 + t <= lb ? (int)Hr[j0 + t] : kScanId;
-        }
-        vL = __shfl_up_sync(0xffffffffu, v[TILES - 1], 1);
-        if (lane == 0) {
-          vL = j0 >= 1 && j0 - 1 <= lb ? (int)Hr[j0 - 1] : kScanId;
-        }
-      }
-#pragma unroll
-      for (int t = 0; t < TILES; ++t) {
-        if (v[t] > m[t]) {
-          m[t] = v[t];
-          sl[t] = slot;
-        }
-      }
-      if (vL > mL) {
-        mL = vL;
-        slL = slot;
-      }
-    }
-
-    // row values before the gap chain, scanned within the thread
-    int x[TILES], up[TILES], dg[TILES];
-#pragma unroll
-    for (int t = 0; t < TILES; ++t) {
-      const int j = j0 + t;
-      up[t] = m[t] + kGap;
-      dg[t] = kScanId;
-      int base = up[t];
-      if (j >= 1) {
-        dg[t] = (t == 0 ? mL : m[t - 1]) + (sq[t] == ch ? kMatch : kMismatch);
-        base = max(dg[t], up[t]);
-      }
-      x[t] = j <= lb ? base - kGap * j : kScanId;
-      if (t > 0) x[t] = max(x[t], x[t - 1]);
-    }
-    SPLIT(2)
-    const int excl = block_excl_max_1bar(x[TILES - 1], warp_tot, r & 1);
-    SPLIT(3)
-    hleft = (HT)(excl + kGap * (j0 - 1));
-
-    // H, directions and the best sink, in the same pass
-#pragma unroll
-    for (int t = 0; t < TILES; ++t) {
-      const int j = j0 + t;
-      if (j <= lb) {
-        const int h = (HT)(max(excl, x[t]) + kGap * j);
-        int code = kDirLeft;
-        if (j >= 1 && h == dg[t]) {
-          code = t == 0 ? slL : sl[t - 1];
-        } else if (h == up[t]) {
-          code = 8 + sl[t];
-        }
-        Db[(size_t)r * l1 + j] = (int8_t)code;
-        Hb[(size_t)i * l1 + j] = (HT)h;
-        s_ring[(i & (ring - 1)) * l1 + j] = (HT)h;
-        hrow[t] = h;
-        if (j == lb && s_sk[r] && h > bval) {
-          bval = h;
-          brank = r;
-        }
-      }
-    }
-    SPLIT(4)
-  }
-
-  const int out_len = N + l_max;
-  int32_t* anb = an + (size_t)b * out_len;
-  int32_t* asb = asp + (size_t)b * out_len;
-  for (int k = tid; k < out_len; k += T) {
-    anb[k] = -2;
-    asb[k] = -2;
-  }
-  if (lb <= l_max && tid == lb / TILES) {
-    s_best[0] = bval;
-    s_best[1] = brank;
-  }
-  __syncthreads();
-
-  if (wid == 0) {
-    int iv = s_best[1] + 1;
-    int jv = lb;
-    int kv = out_len - 1;
-    while (jv > 0 && kv >= 0) {
-      if (iv == 0 || iv - 1 >= nn) {
-        // row 0 (or no graph): left moves to the end
-        const int n = min(jv, kv + 1);
-        for (int s = lane; s < n; s += 32) {
-          anb[kv - s] = -1;
-          asb[kv - s] = jv - 1 - s;
-        }
-        jv -= n;
-        kv -= n;
-        break;
-      }
-      const int r_hi = iv - 1;
-      const int c_lo = jv - (kTile - 1);
-#pragma unroll
-      for (int k = 0; k < kTile; ++k) {
-        const int rr = r_hi - k;
-        const int cc = c_lo + lane;
-        tile[k][lane] = rr >= 0 && cc >= 0 ? Db[(size_t)rr * l1 + cc] : 0;
-      }
-      __syncwarp();
-      if (lane == 0) {
-        // preds are lower ranks, so the walk stays below nn
-        while (jv > 0 && kv >= 0 && iv >= 1) {
-          const int rr = iv - 1;
-          const int k = r_hi - rr;
-          const int c = jv - c_lo;
-          if (k >= kTile || c < 0) break;
-          const int code = tile[k][c];
-          const bool left = code == kDirLeft;
-          const bool up = code >= 8 && !left;
-          anb[kv] = left ? -1 : iv - 1;
-          asb[kv] = up ? -1 : jv - 1;
-          if (!left) iv = s_prow[rr * kMaxPreds + (code & 7)];
-          if (!up) jv -= 1;
-          kv -= 1;
-        }
-      }
-      iv = __shfl_sync(0xffffffffu, iv, 0);
-      jv = __shfl_sync(0xffffffffu, jv, 0);
-      kv = __shfl_sync(0xffffffffu, kv, 0);
-      __syncwarp();
-    }
-    if (lane == 0) {
-      k_end[b] = kv;
-      score[b] = s_best[0];
-    }
-  }
-  SPLIT(5)
-  SPLIT_END
-}
-
-template <typename HT, int Neg, int TILES>
-int launch_tiles(const void* chars, const void* preds, const void* sinks,
-                 const void* n_nodes, const void* seqs, const void* seq_lens,
-                 void* H, void* D, void* an, void* asp, void* k_end,
-                 void* score, int B, int N, int L, int l_max, int threads,
-                 cudaStream_t stream, long long* split) {
-  // the deepest ring (a power of two, at most kRingMax rows) that fits
-  int ring = kRingMax;
-  while (ring > 1 && smem_bytes(N, l_max, ring, sizeof(HT)) > kSmemMax) {
-    ring >>= 1;
-  }
-  const size_t smem = smem_bytes(N, l_max, ring, sizeof(HT));
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  auto kernel = poa_align_kernel<HT, Neg, TILES>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  kernel<<<B, threads, smem, stream>>>(
-      (const uint8_t*)chars, (const int32_t*)preds, (const uint8_t*)sinks,
-      (const int32_t*)n_nodes, (const uint8_t*)seqs,
-      (const int32_t*)seq_lens, (HT*)H, (int8_t*)D, (int32_t*)an,
-      (int32_t*)asp, (int32_t*)k_end, (int32_t*)score, split, N, L, l_max,
-      ring);
-  return (int)cudaGetLastError();
-}
-
-// threads: whole warps, at most max_threads(TILES) for TILES =
-// ceil((l_max+1) / threads) in 1-4; N at most kRowMask (the staged row
-// field).  Else cudaErrorInvalidValue.
-template <typename HT, int Neg>
-int launch(const void* chars, const void* preds, const void* sinks,
-           const void* n_nodes, const void* seqs, const void* seq_lens,
-           void* H, void* D, void* an, void* asp, void* k_end, void* score,
-           int B, int N, int L, int l_max, int threads, void* stream,
-           long long* split = nullptr) {
-  if (B <= 0) return 0;
-  if (threads <= 0 || threads % 32 || N > kRowMask) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int tiles = (l_max + 1 + threads - 1) / threads;
-  if (threads > max_threads(tiles)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-#define K1_TILES(t)                                                       \
-  case t:                                                                 \
-    return launch_tiles<HT, Neg, t>(chars, preds, sinks, n_nodes, seqs,    \
-                                    seq_lens, H, D, an, asp, k_end, score, \
-                                    B, N, L, l_max, threads, s, split);
-  switch (tiles) {
-    K1_TILES(1)
-    K1_TILES(2)
-    K1_TILES(3)
-    K1_TILES(4)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef K1_TILES
+RowArgs k1_args(const void* chars, const void* preds, const void* sinks,
+                const void* n_nodes, const void* seqs, const void* seq_lens,
+                void* H, void* D, void* an, void* asp, void* k_end,
+                void* score, int B, int N, int L, int l_max, int threads,
+                long long* split) {
+  return RowArgs{chars, preds, sinks, n_nodes, seqs, seq_lens, H, D, an,
+                 asp, k_end, score, split, B, N, L, l_max, N + l_max,
+                 threads};
 }
 
 }  // namespace
@@ -454,9 +52,10 @@ extern "C" int poa_align_launch(const void* chars, const void* preds,
                                 void* H, void* D, void* an, void* asp,
                                 void* k_end, void* score, int B, int N,
                                 int L, int l_max, int threads, void* stream) {
-  return launch<int32_t, kNeg>(chars, preds, sinks, n_nodes, seqs, seq_lens,
-                               H, D, an, asp, k_end, score, B, N, L, l_max,
-                               threads, stream);
+  return poa_row::launch<uint8_t, int32_t, poa_dp::kNeg>(
+      k1_args(chars, preds, sinks, n_nodes, seqs, seq_lens, H, D, an, asp,
+              k_end, score, B, N, L, l_max, threads, nullptr),
+      stream);
 }
 
 extern "C" int poa_align16_launch(const void* chars, const void* preds,
@@ -466,9 +65,10 @@ extern "C" int poa_align16_launch(const void* chars, const void* preds,
                                   void* k_end, void* score, int B, int N,
                                   int L, int l_max, int threads,
                                   void* stream) {
-  return launch<int16_t, kNeg16>(chars, preds, sinks, n_nodes, seqs,
-                                 seq_lens, H, D, an, asp, k_end, score, B, N,
-                                 L, l_max, threads, stream);
+  return poa_row::launch<uint8_t, int16_t, kNeg16>(
+      k1_args(chars, preds, sinks, n_nodes, seqs, seq_lens, H, D, an, asp,
+              k_end, score, B, N, L, l_max, threads, nullptr),
+      stream);
 }
 
 #ifdef POA_ALIGN_SPLIT
@@ -480,8 +80,9 @@ extern "C" int poa_align_split_launch(const void* chars, const void* preds,
                                       void* k_end, void* score, int B, int N,
                                       int L, int l_max, int threads,
                                       void* stream, void* split) {
-  return launch<int32_t, kNeg>(chars, preds, sinks, n_nodes, seqs, seq_lens,
-                               H, D, an, asp, k_end, score, B, N, L, l_max,
-                               threads, stream, (long long*)split);
+  return poa_row::launch<uint8_t, int32_t, poa_dp::kNeg>(
+      k1_args(chars, preds, sinks, n_nodes, seqs, seq_lens, H, D, an, asp,
+              k_end, score, B, N, L, l_max, threads, (long long*)split),
+      stream);
 }
 #endif

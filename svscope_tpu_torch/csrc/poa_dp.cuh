@@ -1,6 +1,6 @@
-// Shared by the two POA DP kernels, K1 (poa_align.cu) and K3
-// (poa_pk_align.cu): the scoring constants, the direction codes and the
-// block-wide max-scan that carries the in-row gap chain.
+// Shared by the POA row pass (poa_row.cuh: K1 and K3) and the row probe
+// (probe_row.cu): the scoring constants, the direction codes and the
+// warp and block max-scans that carry the in-row gap chain.
 #pragma once
 
 #include <cstdint>
@@ -21,28 +21,6 @@ __device__ __forceinline__ int warp_incl_max(int v, int lane) {
     int t = __shfl_up_sync(0xffffffffu, v, o);
     if (lane >= o) v = max(v, t);
   }
-  return v;
-}
-
-// Block-wide inclusive max-scan over threadIdx.x order (blockDim.x is a
-// multiple of 32).  Returns the thread's prefix max; *total gets the block
-// max.  The caller syncs before the next call reuses warp_tot.
-__device__ __forceinline__ int block_incl_max(int v, int* warp_tot,
-                                              int* total) {
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  v = warp_incl_max(v, lane);
-  if (lane == 31) warp_tot[wid] = v;
-  __syncthreads();
-  if (wid == 0) {
-    int t = lane < nw ? warp_tot[lane] : kScanId;
-    t = warp_incl_max(t, lane);
-    if (lane < nw) warp_tot[lane] = t;
-  }
-  __syncthreads();
-  if (wid > 0) v = max(v, warp_tot[wid - 1]);
-  *total = warp_tot[nw - 1];
   return v;
 }
 

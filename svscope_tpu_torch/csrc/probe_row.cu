@@ -3,15 +3,15 @@
 // Replaces tools/probe/row_probe.py::run_padded (its Pallas kernel,
 // make_kernel), the TPU probe that split K1's per-row cost.  Each variant
 // computes that probe's last row hN from the same inputs (chars (B, nrows),
-// seqs (B, l1), int32), and on the card does the work of that part of K1
-// (csrc/poa_align.cu):
+// seqs (B, l1), int32), and on the card does the work of that part of
+// K1's first design (one thread a column, three barriers a row):
 //
 //   loop    the carried row (h + 1 per row, one column per thread, in a
 //           register) and one block barrier per row;
 //   store   + the row written to an H plane (B, nrows+1, l1) in device
 //           memory, as K1 writes each row;
-//   pfx     + K1's block-wide inclusive max-scan (block_incl_max) of h + 1,
-//           floored at NEG as the TPU scan's fill does;
+//   pfx     + that K1's block-wide inclusive max-scan (block_incl_max) of
+//           h + 1, floored at NEG as the TPU scan's fill does;
 //   chmask  + the per-row node char, a load of chars[b, r] (the TPU probe's
 //           O(N) masked sum is a TPU layout idiom; K1 loads the char);
 //   row     the full chain row: substitution, diag through the previous row
@@ -36,6 +36,29 @@ using namespace poa_dp;
 
 enum Variant { kLoop = 0, kStore = 1, kPfx = 2, kChmask = 3, kRow = 4 };
 constexpr int kLiveCols = 450;        // row 0: g*j up to column 450, NEG past
+
+// Block-wide inclusive max-scan over threadIdx.x order (blockDim.x is a
+// multiple of 32), the scan of K1's first design, with its two barriers.
+// Returns the thread's prefix max; *total gets the block max.  The caller
+// syncs before the next call reuses warp_tot.
+__device__ __forceinline__ int block_incl_max(int v, int* warp_tot,
+                                              int* total) {
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  v = warp_incl_max(v, lane);
+  if (lane == 31) warp_tot[wid] = v;
+  __syncthreads();
+  if (wid == 0) {
+    int t = lane < nw ? warp_tot[lane] : kScanId;
+    t = warp_incl_max(t, lane);
+    if (lane < nw) warp_tot[lane] = t;
+  }
+  __syncthreads();
+  if (wid > 0) v = max(v, warp_tot[wid - 1]);
+  *total = warp_tot[nw - 1];
+  return v;
+}
 
 template <int V>
 __global__ void __launch_bounds__(1024)

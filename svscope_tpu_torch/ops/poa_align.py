@@ -28,7 +28,7 @@ from .poa_device import (MAX_PREDS, align_batch_reference,
                          check_int16_shape, pad_pred_slots)
 
 SOURCE = "poa_align.cu"
-MAX_TILES = 4           # columns a thread (csrc/poa_align.cu launch())
+MAX_TILES = 4           # columns a thread (csrc/poa_row.cuh launch())
 TARGET_THREADS = 320    # threads a CTA to aim at
 RING_MAX = 16           # recent H rows in shared memory
 SMEM_MAX = 232448       # dynamic shared memory of a block on the H100
@@ -100,7 +100,7 @@ def launch_threads(l_max: int) -> int:
 
 def ring_rows(n_max: int, l_max: int, int16_mode: bool = False) -> int:
     """Recent H rows K1 keeps in shared memory: RING_MAX, halved until the
-    CTA's shared memory fits SMEM_MAX (csrc/poa_align.cu launch_tiles)."""
+    CTA's shared memory fits SMEM_MAX (csrc/poa_row.cuh launch_tiles)."""
     ring = RING_MAX
     while ring > 1 and smem_bytes(n_max, l_max, ring, int16_mode) > SMEM_MAX:
         ring //= 2
@@ -111,7 +111,7 @@ def smem_bytes(n_max: int, l_max: int, ring: int,
                int16_mode: bool = False) -> int:
     """Dynamic shared memory of K1's CTA: the ring of H rows, then per rank
     8 uint16 pred entries, 8 uint16 per-slot pred rows, the entry count,
-    the node char and the sink flag (csrc/poa_align.cu::smem_bytes)."""
+    the node char and the sink flag (csrc/poa_row.cuh::smem_bytes)."""
     return ring * (l_max + 1) * (2 if int16_mode else 4) \
         + n_max * (2 * MAX_PREDS * 2 + 3)
 

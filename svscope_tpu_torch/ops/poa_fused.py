@@ -7,8 +7,8 @@ for the whole build.  Each read round of a window batch is:
 
   1. `pk_round_prep` (torch ops): the canonical group-aware Kahn order
      (`toposort`), the rank-space view of every graph (chars, preds with
-     empty slots copied from slot 0, sinks, chain flags, pre-round column
-     ids) and the read staged for the aligner;
+     empty slots copied from slot 0, sinks, pre-round column ids) and the
+     read staged for the aligner;
   2. K3 (`poa_fused_kernel.align_tb`): the DP and the traceback;
   3. K4 or K5 (`poa_fused_kernel.fusion`): the alignment fused into the
      graph state in place, and the read's node path.
@@ -170,8 +170,10 @@ def toposort(pn, gm, nn, check_every: int = KAHN_CHECK_EVERY):
 
 def pk_round_prep(st: GraphState, seq, slen):
     """Operands of one round's kernels (`_pk_round_prep` of the JAX
-    package, without its TPU packing): returns (ops, cyclic) with ops =
-    (charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff), int32.
+    package, without its TPU packing and its chain flags, which only the
+    TPU kernel reads): returns (ops, cyclic) with ops = (charsr, sinksr,
+    predsp, seqv, lb, nn_eff, gminr), int32: K3's six operands, then the
+    fusion's gminr.
 
     seq (B, l_max) int32 base codes of the round's reads, slen (B,)."""
     B, ncap = st.ch.shape
@@ -192,18 +194,12 @@ def pk_round_prep(st: GraphState, seq, slen):
     outdeg.scatter_add_(1, pnc.reshape(B, -1), valid.reshape(B, -1).to(i32))
     sinksr = (outdeg == 0).to(i32).gather(1, order)
     nn_eff = torch.where(slen > 0, st.nn, 0).to(i32)
-    single = preds_r[:, :, 1] < 0
-    first_prev = preds_r[:, :, 0] == ids - 1
-    root0 = (ids == 0) & (preds_r[:, :, 0] < 0)
-    inactive = ids >= nn_eff[:, None]
-    chainw = ((single & (first_prev | root0)) | inactive).to(i32)
     predsp = torch.where(preds_r < 0, preds_r[:, :, :1], preds_r).to(i32)
     seqv = torch.full((B, l_max + 1), 255, dtype=i32, device=dev)
     seqv[:, 1:] = seq
     ops = (charsr.to(i32).contiguous(), sinksr.contiguous(),
-           predsp.contiguous(), chainw.contiguous(),
-           gminr.to(i32).contiguous(), seqv, slen.to(i32).contiguous(),
-           nn_eff.contiguous())
+           predsp.contiguous(), seqv, slen.to(i32).contiguous(),
+           nn_eff.contiguous(), gminr.to(i32).contiguous())
     return ops, cyclic
 
 
@@ -328,9 +324,8 @@ def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cpu",
         ops, cyclic = pk_round_prep(st, seq, slen)
         st.ovf |= cyclic.to(torch.int32)
         ph.mark("prep")
-        charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = ops
-        an, asx, ke = align_tb(charsr, sinksr, predsp, chainw, seqv, lb,
-                               nn_eff)
+        *k3_ops, gminr = ops
+        an, asx, ke = align_tb(*k3_ops)
         ph.mark("align")
         if round_hook is not None:
             round_hook(r, ops, st, an, asx, ke)

@@ -2,8 +2,9 @@
 plain torch versions (counterpart of svscope_tpu/ops/poa_fused_kernel.py).
 
   * K3 `align_tb` (csrc/poa_pk_align.cu): K1's DP over the rank-space graph
-    that ops/poa_fused.pk_round_prep builds each round, plus the traceback.
-    Plain version: `align_tb_reference`.
+    that ops/poa_fused.pk_round_prep builds each round, plus the traceback
+    — K1's row pass (csrc/poa_row.cuh) on the pk layout, one launch a
+    round.  Plain version: `align_tb_reference`.
   * K4/K5 `fusion` (csrc/poa_pk_fusion.cu): fuse each window's alignment
     into its graph state, in place — K4 one thread per window (lockstep),
     K5 one thread per group of 8 windows in order.  `fusion_engine()`
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..utils.cuda_build import load_cuda_lib
-from .poa_align import check_tensor
+from .poa_align import check_tensor, launch_threads
 from .poa_device import MAX_PREDS, align_batch_reference
 
 ALPHA5 = 5                 # base codes ACGTN -> 0..4
@@ -152,17 +153,17 @@ def graph_state_to_jax(st: GraphState):
 
 # ---------------------------------------------------------------- K3 ----
 
-def align_tb_reference(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff):
-    """Plain torch K3.  charsr/sinksr/chainw (B, N) int32; predsp (B, N, 8)
-    int32 rank-space preds, empty slots holding slot 0; seqv (B, l_max+1)
-    int32 with column 0 = 255 and codes 0-4 after it; lb, nn_eff (B,).
+def align_tb_reference(charsr, sinksr, predsp, seqv, lb, nn_eff):
+    """Plain torch K3.  charsr/sinksr (B, N) int32; predsp (B, N, 8) int32
+    rank-space preds, empty slots holding slot 0; seqv (B, l_max+1) int32
+    with column 0 = 255 and codes 0-4 after it; lb, nn_eff (B,).
 
     Returns (an, asx, ke): (B, N-1+l_max) int32 right-aligned rank / seq
     position pairs (-1 gap, -2 pad) and (B,) int32 last unwritten index.
     It is K1's plain version with K1's narrower-by-one buffer: a path has
     at most nn_eff + lb <= N-1+l_max entries, so K1's first column is
-    always pad.  chainw only lets the kernel skip pred reads; the result
-    does not depend on it."""
+    always pad.  JAX's align_tb_call also takes chain-row flags, which
+    only its TPU kernel reads; the port has none."""
     B, N = charsr.shape
     l_max = seqv.shape[1] - 1
     slot = torch.arange(MAX_PREDS, device=predsp.device)
@@ -178,14 +179,17 @@ def _align_fn():
     if "align" not in _fns:
         fn = load_cuda_lib(ALIGN_SOURCE).pk_align_launch
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 12 + [ci] * 4 + [vp]
+        fn.argtypes = [vp] * 11 + [ci] * 4 + [vp]
         fn.restype = ci
         _fns["align"] = fn
     return _fns["align"]
 
 
-def align_tb_cuda(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff):
-    """Launch K3 on CUDA tensors (see align_tb_reference)."""
+def align_tb_cuda(charsr, sinksr, predsp, seqv, lb, nn_eff):
+    """Launch K3 on CUDA tensors (see align_tb_reference), with K1's launch
+    configuration (poa_align.launch_threads).  Every tensor must be
+    contiguous; predsp also 16-byte aligned (the kernel reads a rank's 8
+    slots as two 16-byte words)."""
     dev = charsr.device
     if dev.type != "cuda":
         raise ValueError(f"align_tb_cuda needs CUDA tensors, got {dev}")
@@ -196,24 +200,25 @@ def align_tb_cuda(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff):
     for name, t, shape in (("charsr", charsr, (B, N)),
                            ("sinksr", sinksr, (B, N)),
                            ("predsp", predsp, (B, N, MAX_PREDS)),
-                           ("chainw", chainw, (B, N)),
                            ("seqv", seqv, (B, l1)), ("lb", lb, (B,)),
                            ("nn_eff", nn_eff, (B,))):
         check_tensor(name, t, i32, shape, dev)
+    if predsp.data_ptr() % 16:
+        raise ValueError("predsp must be 16-byte aligned")
+    threads = launch_threads(l_max)
     out_len = N - 1 + l_max        # at most N-1 nodes plus l_max bases
     H = torch.empty((B, N + 1, l1), dtype=i32, device=dev)
     D = torch.empty((B, N, l1), dtype=torch.int8, device=dev)
     an = torch.empty((B, out_len), dtype=i32, device=dev)
     asx = torch.empty((B, out_len), dtype=i32, device=dev)
     ke = torch.empty((B,), dtype=i32, device=dev)
-    threads = min(1024, (l1 + 31) // 32 * 32)
     fn = _align_fn()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(charsr.data_ptr(), sinksr.data_ptr(), predsp.data_ptr(),
-                chainw.data_ptr(), seqv.data_ptr(), lb.data_ptr(),
-                nn_eff.data_ptr(), H.data_ptr(), D.data_ptr(), an.data_ptr(),
-                asx.data_ptr(), ke.data_ptr(), B, N, l_max, threads, stream)
+                seqv.data_ptr(), lb.data_ptr(), nn_eff.data_ptr(),
+                H.data_ptr(), D.data_ptr(), an.data_ptr(), asx.data_ptr(),
+                ke.data_ptr(), B, N, l_max, threads, stream)
     if rc != 0:
         raise RuntimeError(f"pk_align_launch failed: CUDA error {rc} "
                            f"(B={B}, N={N}, l_max={l_max})")
@@ -221,13 +226,12 @@ def align_tb_cuda(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff):
     return an, asx, ke
 
 
-def align_tb(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff):
+def align_tb(charsr, sinksr, predsp, seqv, lb, nn_eff):
     """K3 on CUDA tensors, its plain version on CPU tensors."""
     if charsr.device.type == "cuda":
-        return align_tb_cuda(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff)
+        return align_tb_cuda(charsr, sinksr, predsp, seqv, lb, nn_eff)
     if charsr.device.type == "cpu":
-        return align_tb_reference(charsr, sinksr, predsp, chainw, seqv, lb,
-                                  nn_eff)
+        return align_tb_reference(charsr, sinksr, predsp, seqv, lb, nn_eff)
     raise ValueError(f"unsupported device {charsr.device}")
 
 

@@ -53,7 +53,11 @@ SMALL_ROWS = 16
 # large inputs lie in [-LIM, LIM): x + y cannot leave int16, so wrapping
 # and saturating adds agree
 LIM = 16000
-N_INPUTS = {"roll16": 1, "vimax3_s16x2": 3, "viaddmax_s16x2": 3}
+# input arrays each op's result depends on (2 where not listed): eq16's
+# select is y whatever the compare gives; where_i32m takes each element
+# from x or from y, never both
+N_INPUTS = {"eq16": 1, "roll16": 1, "where_i32m": 1, "vimax3_s16x2": 3,
+            "viaddmax_s16x2": 3}
 # the one PyTorch call computing the same function, where there is one
 LIBRARY = {"max16": lambda x, y, z: torch.maximum(x, y),
            "roll16": lambda x, y, z: torch.roll(x, 1, 1)}
@@ -120,16 +124,20 @@ def _kernel():
 
 
 def int16_op_cuda(op: str, x, y, z):
-    """Launch the probe kernel of `op` on CUDA tensors."""
+    """Launch the probe kernel of `op` on CUDA tensors: contiguous,
+    16-byte aligned (rows, width) int16, width a multiple of 8."""
     _check_op(op)
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"int16_op_cuda needs CUDA tensors, got {dev}")
     rows, width = x.shape
-    if width % 2:
-        raise ValueError(f"row width {width} must be even (s16x2 pairs)")
+    if width <= 0 or width % 8:
+        raise ValueError(f"row width {width} must be a positive multiple of "
+                         "8 (the kernel moves 8 int16 an access)")
     for name, t in (("x", x), ("y", y), ("z", z)):
         check_tensor(name, t, torch.int16, (rows, width), dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     out = torch.empty_like(x)
     fn = _kernel()
     with torch.cuda.device(dev):
@@ -155,7 +163,8 @@ def int16_op(op: str, x, y, z):
 
 
 def op_bytes(op: str, rows: int) -> int:
-    """Bytes the op must move: each input read once, the output written."""
+    """Bytes the op must move: each input its result depends on read once,
+    the output written once."""
     return (N_INPUTS.get(op, 2) + 1) * rows * WIDTH * 2
 
 

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (K1 and K1-int16; K3,
 K4, K5 of the fused pk build; K2 of the MisScore path; the row,
 fusion-body and int16 probes) against their plain torch versions, at the
-edges of K1's and K2's layouts too, and the slices' device paths and the
+edges of K1's, K3's, K2's and the int16 probe's layouts too, and the slices' device paths and the
 measurement tools (K1's clock64 split among them), on the card.
 
 Marked `cuda`; they skip without a card.  This file imports no JAX, so it
@@ -147,18 +147,62 @@ def test_pk_kernels_match_plain(pk_rounds, r):
 
 def test_pk_kernels_count_launches_and_reject_bad_input(pk_rounds):
     ops, st, an, asx, ke = pk_rounds[5]
-    charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = ops
+    charsr, sinksr, predsp, seqv, lb, nn_eff, gminr = ops
     before = dict(tpk.LAUNCHES)
-    tpk.align_tb(charsr, sinksr, predsp, chainw, seqv, lb, nn_eff)
+    tpk.align_tb(charsr, sinksr, predsp, seqv, lb, nn_eff)
     tpk.fusion(an, asx, ke, gminr, seqv[:, 1:].contiguous(), st.clone())
     assert tpk.LAUNCHES["K3"] == before["K3"] + 1
     assert tpk.LAUNCHES["K4"] == before["K4"] + 1
     with pytest.raises(TypeError):
-        tpk.align_tb_cuda(charsr.long(), sinksr, predsp, chainw, seqv, lb,
-                          nn_eff)
+        tpk.align_tb_cuda(charsr.long(), sinksr, predsp, seqv, lb, nn_eff)
     with pytest.raises(ValueError):               # not contiguous
         tpk.fusion_cuda(an, asx.t().contiguous().t(), ke, gminr,
                         seqv[:, 1:].contiguous(), st.clone())
+
+
+def test_k3_edge_windows(dev):
+    """K3 == plain on the pk-layout edge windows (an empty graph, an empty
+    read, 8 distinct preds beside padded slots, sources past rank 0, a
+    read longer than its graph, no sink), one launch."""
+    before = tpk.LAUNCHES["K3"]
+    assert chip_smoke.k3_parity(chip_smoke.pk_layout(
+        *chip_smoke.k3_edge_case(), 64), dev, "edge windows") == 0
+    assert tpk.LAUNCHES["K3"] == before + 1
+
+
+@pytest.mark.parametrize("l_max", [512, 2048])
+def test_k3_widest_bucket(dev, l_max):
+    """K3 == plain on random graphs at ncap 3073, the widest pk bucket (at
+    l_max 2048 the ring of H rows halves to fit shared memory)."""
+    arrs = chip_smoke.random_graph_case(chip_smoke.PK_NCAP_MAX, l_max, 4,
+                                        l_max)[3]
+    assert chip_smoke.k3_parity(chip_smoke.pk_layout(*arrs, l_max), dev,
+                                f"l_max={l_max}") == 0
+
+
+def test_k3_heavy_round_200(dev):
+    """K3 == plain (and == the build's own K3) at round 200 of heavy32x400,
+    ncap 3073."""
+    import localgraph_golden as lgg
+    wins = lgg.make_workload("heavy32x400")
+    _bucket, caps = chip_smoke.capture_rounds(
+        [w.sequences for w in wins], (chip_smoke.PK_HEAVY_ROUND,), dev)
+    ops, st, an, asx, ke = caps[chip_smoke.PK_HEAVY_ROUND]
+    assert ops[0].shape[1] == chip_smoke.PK_NCAP_MAX
+    errs = chip_smoke.pk_compare(ops, st, an, asx, ke)
+    assert not any(errs.values()), errs
+
+
+def test_k3_rejects_unaligned_preds(pk_rounds):
+    ops = pk_rounds[5][0]
+    charsr, sinksr, predsp, seqv, lb, nn_eff, _gminr = ops
+    shifted = torch.empty(predsp.numel() + 1, dtype=torch.int32,
+                          device=predsp.device)[1:].view(predsp.shape)
+    shifted.copy_(predsp)
+    before = tpk.LAUNCHES["K3"]
+    with pytest.raises(ValueError):
+        tpk.align_tb_cuda(charsr, sinksr, shifted, seqv, lb, nn_eff)
+    assert tpk.LAUNCHES["K3"] == before
 
 
 def test_fused_msa_on_card_matches_host(dev):
@@ -334,3 +378,30 @@ def test_int16_probe_ops_match_plain(dev):
                 op, *inputs).cpu()), op
     res = ip.main(["--device", "cuda", "--rows", "4096", "--reps", "2"])
     assert all(r["ok"] for r in res.values())
+
+
+@pytest.mark.parametrize("width", [8, 24, 128, 256, 520])
+def test_int16_probe_row_widths(dev, width):
+    """Every op == plain at row widths of 1, 3, 16, 32 and 65 int4 (rows
+    that straddle warps read roll16's neighbour from memory), on 16-byte
+    accesses."""
+    from svscope_tpu_torch.tools.probe import int16_probe as ip
+    a = np.random.default_rng(width).integers(-ip.LIM, ip.LIM,
+                                              (3, 37, width), np.int16)
+    x, y, z = (torch.from_numpy(a[i]).to(dev) for i in range(3))
+    for op in ip.ALL_OPS:
+        assert torch.equal(ip.int16_op_cuda(op, x, y, z).cpu(),
+                           ip.int16_op_reference(op, x, y, z).cpu()), op
+
+
+def test_int16_probe_rejects_widths_off_8(dev):
+    from svscope_tpu_torch.tools.probe import int16_probe as ip
+    x = torch.zeros((16, 12), dtype=torch.int16, device=dev)
+    before = dict(ip.LAUNCHES)
+    with pytest.raises(ValueError):
+        ip.int16_op_cuda("max16", x, x, x)
+    big = torch.zeros(16 * 128 + 1, dtype=torch.int16, device=dev)
+    off = big[1:].view(16, 128)
+    with pytest.raises(ValueError):
+        ip.int16_op_cuda("max16", off, off, off)
+    assert ip.LAUNCHES == before

@@ -40,7 +40,10 @@ def test_include_cycle_and_missing_source(tmp_path):
 
 def test_repo_kernels_share_the_dp_header():
     for src in ("poa_align.cu", "poa_pk_align.cu"):
-        assert cuda_build.source_files(src) == [src, "poa_dp.cuh"]
+        assert cuda_build.source_files(src) == [src, "poa_row.cuh",
+                                                "poa_dp.cuh"]
+    assert cuda_build.source_files("probe_row.cu") == \
+        ["probe_row.cu", "poa_dp.cuh"]
     assert cuda_build.source_files("poa_pk_fusion.cu") == \
         ["poa_pk_fusion.cu"]
 

@@ -81,6 +81,20 @@ def test_large_inputs_keep_sums_in_int16():
     assert tip.op_bytes("viaddmax_s16x2", 64) == 4 * 64 * 128 * 2
 
 
+@pytest.mark.parametrize("op", ["eq16", "where_i32m"])
+def test_one_input_ops_read_one_array(op):
+    """eq16 and where_i32m are bounded by one input array: changing what
+    their result does not take (all of x; x's columns 0-2 and y's from 3)
+    leaves it as it was."""
+    x, y, z = tip.large_inputs(16)
+    want = tip.int16_op_reference(op, x, y, z)
+    x2, y2 = -x - 1, y.clone()
+    if op == "where_i32m":
+        x2[:, 3:], y2[:, 3:] = x[:, 3:], -y[:, 3:] - 1
+    assert torch.equal(tip.int16_op_reference(op, x2, y2, z), want)
+    assert tip.op_bytes(op, 16) == 2 * 16 * 128 * 2
+
+
 def test_main_on_cpu_and_exit_code(capsys):
     res = tip.main(["--device", "cpu", "--rows", "64", "--reps", "1"])
     out = capsys.readouterr().out

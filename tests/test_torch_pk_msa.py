@@ -114,13 +114,13 @@ def test_fusion_engine_is_read_at_call_time(monkeypatch):
 def test_dispatchers_refuse_other_devices():
     meta = torch.empty((2, 4), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
-        tpk.align_tb(meta, meta, meta, meta, meta, meta[:, 0], meta[:, 0])
+        tpk.align_tb(meta, meta, meta, meta, meta[:, 0], meta[:, 0])
     st = tpk.GraphState.empty(2, 4, "meta")
     with pytest.raises(ValueError):
         tpk.fusion(meta, meta, meta[:, 0], meta, meta, st)
     cpu = torch.zeros((2, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
-        tpk.align_tb_cuda(cpu, cpu, cpu, cpu, cpu, cpu[:, 0], cpu[:, 0])
+        tpk.align_tb_cuda(cpu, cpu, cpu, cpu, cpu[:, 0], cpu[:, 0])
     with pytest.raises(ValueError):
         tpk.fusion_cuda(cpu, cpu, cpu[:, 0], cpu, cpu,
                         tpk.GraphState.empty(2, 4, "cpu"))

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from svscope_tpu.ops import poa_fused as jpf
 from svscope_tpu.ops import poa_fused_kernel as jpk
 from svscope_tpu_torch.ops import poa_fused as tpf
@@ -93,11 +94,15 @@ def test_round_prep_matches_jax(rounds, r):
     rd = rounds[r]
     ops, cyclic = tpf.pk_round_prep(port_state(rd["before"]), t32(rd["seq"]),
                                     t32(rd["slen"]))
-    charsr, sinksr, predsp, chainw, gminr, seqv, lb, nn_eff = \
+    charsr, sinksr, predsp, seqv, lb, nn_eff, gminr = \
         [o.numpy() for o in ops]
     (j_chars, j_sinks, j_packed, _chain_all, j_chainw, j_gminr, j_seqv,
      j_lb, j_nn) = rd["ops"]
     j_predsp = j_packed.reshape(B, -1, 8)[:, :NCAP]
+    # the port builds no chain-row flags (only JAX's TPU kernel reads
+    # them); chip_smoke.chain_flags rebuilds them from the pk layout for
+    # trees whose K3 still takes them
+    chainw = chip_smoke.chain_flags(predsp, nn_eff)
     for name, g, w in (("charsr", charsr, j_chars), ("sinksr", sinksr,
                                                      j_sinks),
                        ("predsp", predsp, j_predsp),
@@ -110,12 +115,12 @@ def test_round_prep_matches_jax(rounds, r):
 
 @pytest.mark.parametrize("r", range(R_MAX))
 def test_align_tb_reference_matches_jax_k3(rounds, r):
-    (charsr, sinksr, packed, _chain_all, chainw, _gminr, seqv, lb,
+    (charsr, sinksr, packed, _chain_all, _chainw, _gminr, seqv, lb,
      nn_eff) = rounds[r]["ops"]
     predsp = packed.reshape(B, -1, 8)[:, :NCAP]
     got = tpk.align_tb_reference(
-        t32(charsr), t32(sinksr), t32(predsp), t32(chainw), t32(seqv),
-        t32(lb[:, 0]), t32(nn_eff[:, 0]))
+        t32(charsr), t32(sinksr), t32(predsp), t32(seqv), t32(lb[:, 0]),
+        t32(nn_eff[:, 0]))
     an, asx, ke = rounds[r]["k3"]
     np.testing.assert_array_equal(got[0].numpy(), an)
     np.testing.assert_array_equal(got[1].numpy(), asx)

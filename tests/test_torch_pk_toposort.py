@@ -151,8 +151,8 @@ def built_state(seed: int):
     for r in range(R):
         ops, cyc = tpf.pk_round_prep(st, seqs_t[:, r],
                                      torch.from_numpy(lens[:, r]))
-        an, asx, ke = align_tb(*ops[:4], ops[5], ops[6], ops[7])
-        fusion(an, asx, ke, ops[4], seqs_t[:, r], st)
+        an, asx, ke = align_tb(*ops[:6])
+        fusion(an, asx, ke, ops[6], seqs_t[:, r], st)
     return st
 
 
