@@ -33,17 +33,25 @@ non-zero before the final line:
   5. the CLI: `python -m svscope_tpu_torch.cli localGraph --device cuda`
      on the synthetic BAM pair; Raw.bed sha256 equals the golden.
   6. pk-parity: K3, K4 and K5 against their plain versions (and K4 against
-     K5) on operands captured from real rounds of the port's fused build:
-     the first 128 bench256 windows at rounds 1, 12 and 24, the heavy
-     windows at round 200 (ncap 3073); K3 also on hand-built edge windows
-     (empty graph, empty read, 8 distinct preds beside padded slots,
-     sources past rank 0, a read longer than its graph, no sink) and on
-     random graphs at the widest bucket, ncap 3073 with l_max 512 and
+     K5, and the plain version against the CPU model of K4's phases,
+     tests/torch_fusion_model.py) on operands captured from real rounds of
+     the port's fused build: the first 128 bench256 windows at rounds 1, 12
+     and 24, the heavy windows at round 200 (ncap 3073); K4 and K5 also on
+     hand-built edge states (fusion_edge_case: a duplicate key, the trash
+     row reached, overflow set on entry, 8 full pred slots, re-walked
+     edges, runs of gaps, an empty alignment, a read longer than its
+     graph), where K4's count of windows that took the serial walk must be
+     the model's (3; printed for every round too); K3 also on hand-built
+     edge windows (empty graph, empty read, 8 distinct preds beside padded
+     slots, sources past rank 0, a read longer than its graph, no sink) and
+     on random graphs at the widest bucket, ncap 3073 with l_max 512 and
      2048.  Exact.
   7. pk-time: each of K3, K4, K5 and its plain version on the bench batch
-     the port launches (128 windows, round 12), and K3 at the heavy
-     capture (32 windows, round 200); the kernels' calls queued ahead of
-     the device (tools/timing.py), the plain versions as they run.
+     the port launches (128 windows, round 12) and at the heavy capture
+     (32 windows, round 200); the kernels' calls queued ahead of the device
+     (tools/timing.py), the plain versions as they run; K4 and K5 also one
+     call at a time right after a fresh state clone, queued and with the
+     host's issue.
   8. bench256 through process_window_batch(device_poa="fused"): golden
      256/256, records equal the device-POA run's, K3 and K4 launched in
      that run, no host fallback; warm windows/s best of 3; the MSA phase
@@ -97,18 +105,20 @@ non-zero before the final line:
 
 With `--ab TREE ...` (source trees' roots, relative to this script; "."
 is this checkout), K1 at the k1-time and heavy shapes, K2 at every
-misscore4096 bucket, K3 on the bench round-12 and heavy round-200
-captures, and every int16 probe op at (262144, 128) with torch.maximum
-and torch.roll beside them are then timed in each tree's own build, a
-process per tree, on the same saved inputs, calls queued ahead, each tree
-twice in turns (phase `ab`).  A tree whose K3 still takes the chain-row
-flags gets them, rebuilt from the pk layout (chain_flags).
+misscore4096 bucket, K3, K4 and K5 on the bench round-12 and heavy
+round-200 captures, and every int16 probe op at (262144, 128) with
+torch.maximum and torch.roll beside them are then timed in each tree's own
+build, a process per tree, on the same saved inputs, calls queued ahead,
+each tree twice in turns (phase `ab`).  A tree whose K3 still takes the
+chain-row flags gets them, rebuilt from the pk layout (chain_flags).
 
 Then one JSON line listing every kernel with its launches on the main path,
 error, times and bound (a probe's row: the sums over its variants, which
 it lists under "variants", with the library call's time where there is
 one; K1's, K3's and K4's rows add their launches per workload, K1's and
-K3's the heavy shape as timed, K2's its time per bucket launch), the card
+the pk kernels' the heavy shape as timed, K4's and K5's their single-call
+times, K4's its serial-walk windows per round checked, K2's its time per
+bucket launch), the card
 line, and the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
 package (checked at the end).
@@ -130,10 +140,12 @@ KERNEL_REPLACES = "svscope_tpu/ops/poa_pallas.py:117"
 PK_KERNELS = {
     "K3": ("align_tb (K3, pk round: DP + traceback)", "poa_pk_align.cu",
            "svscope_tpu/ops/poa_fused_kernel.py:129"),
-    "K4": ("fusion lockstep (K4, pk round: graph fusion, thread/window)",
-           "poa_pk_fusion.cu", "svscope_tpu/ops/poa_fused_kernel.py:298"),
-    "K5": ("fusion seq (K5, pk round: graph fusion, 8 windows/thread)",
-           "poa_pk_fusion.cu", "svscope_tpu/ops/poa_fused_kernel.py:438"),
+    "K4": ("fusion lockstep (K4, pk round: graph fusion, a block per "
+           "window in parallel phases)", "poa_pk_fusion.cu",
+           "svscope_tpu/ops/poa_fused_kernel.py:298"),
+    "K5": ("fusion seq (K5, pk round: graph fusion, the serial walk, a warp "
+           "per window)", "poa_pk_fusion.cu",
+           "svscope_tpu/ops/poa_fused_kernel.py:438"),
 }
 PK_BENCH_ROUNDS = (0, 11, 23)      # rounds 1, 12 and 24
 PK_HEAVY_ROUND = 199               # round 200
@@ -151,7 +163,8 @@ ATTACHED_B = 64
 PROBES = {
     "row": ("row probe (K1's row loop, part by part)", "probe_row.cu",
             "tools/probe/row_probe.py:100"),
-    "fusebody": ("fusion-body probe (K4's fusion body on replayed states)",
+    "fusebody": ("fusion-body probe (the serial fusion body on replayed "
+                 "states)",
                  "probe_fusebody.cu", "tools/probe/fusebody_probe.py:232"),
     "int16": ("int16 op probe (int16 ops and packed s16x2 intrinsics)",
               "probe_int16.cu", "tools/probe/int16_mosaic_probe.py:58"),
@@ -325,6 +338,129 @@ def pk_layout(chars, preds, sinks, nn, seqs, lens, l_max):
     return tuple(np.ascontiguousarray(a, dtype=np.int32) for a in (
         chars, sinks, np.where(preds < 0, preds[..., :1], preds), seqv,
         lens, nn))
+
+
+FUSION_EDGE_CASES = ("duplicate key", "reaches the trash row",
+                     "overflow set on entry", "8 full pred slots",
+                     "re-walked edges", "runs of gaps", "empty alignment",
+                     "read longer than its graph")
+
+
+def fusion_edge_case(ncap=48, l_max=40):
+    """Hand-built fusion rounds at the edges of K4's parallel phases
+    (numpy int32), B = 8, one case per window (FUSION_EDGE_CASES):
+    0, ranks 5 and 6 in one column (gminr 5) under the same new read base
+    (a duplicate key); 1, nn = trash - 3 and 5 insertions (the last two
+    land on the trash row, ovf set); 2, ovf set on entry; 3, a new edge
+    into a node whose 8 pred slots are full (ovf by the edge); 4, a read
+    re-walking a chain (weights + 1) with one substitution (a creator
+    joining a column); 5, runs of asx = -1 gaps between valid entries;
+    6, an empty alignment (ke = out_len - 1); 7, a 30 bp read on an 8-node
+    chain.  Ranks are node ids, each node its own column unless stated,
+    and the rows past nn hold GraphState.empty's pattern.  Returns
+    ((an, asx, ke, gminr, seqs5), (pn, pw, pt, gc, ch, gm, nn, tctr,
+    ovf)); n_max = ncap."""
+    import numpy as np
+    rng = np.random.default_rng(31)
+    B = 8
+    out_len = ncap - 1 + l_max
+    trash = ncap - 1
+    pn = np.full((B, ncap, 8), -1, np.int32)
+    pw = np.zeros((B, ncap, 8), np.int32)
+    pt = np.zeros((B, ncap, 8), np.int32)
+    gc = np.full((B, ncap, 5), -1, np.int32)
+    ch = np.zeros((B, ncap), np.int32)
+    gm = np.tile(np.arange(ncap, dtype=np.int32), (B, 1))
+    nn, tctr, ovf = (np.zeros(B, np.int32) for _ in range(3))
+    gminr = np.zeros((B, ncap), np.int32)
+    an = np.full((B, out_len), -2, np.int32)
+    asx = np.full((B, out_len), -2, np.int32)
+    ke = np.full(B, out_len - 1, np.int32)
+    seqs5 = np.zeros((B, l_max), np.int32)
+
+    def node(w, base, preds=(), col=None):
+        i = int(nn[w])
+        nn[w] += 1
+        col = i if col is None else col
+        ch[w, i], gm[w, i], gminr[w, i] = base, col, col
+        gc[w, col, base] = i
+        for s, p in enumerate(preds):
+            pn[w, i, s], pw[w, i, s], pt[w, i, s] = p, rng.integers(1, 5), \
+                tctr[w]
+            tctr[w] += 1
+        return i
+
+    def chain(w, n, first_preds=()):
+        for j in range(n):
+            node(w, int(rng.integers(0, 4)),
+                 (nn[w] - 1,) if j else first_preds)
+
+    def align(w, entries, read):
+        """entries: (rank, read position) pairs in order, -1 a gap."""
+        n = len(entries)
+        ke[w] = out_len - 1 - n
+        if n:
+            an[w, out_len - n:], asx[w, out_len - n:] = zip(*entries)
+        seqs5[w, :len(read)] = read
+
+    def other(*bases):
+        return next(b for b in range(4) if b not in bases)
+    # 0: node 6 is node 5's alternative in column 5
+    chain(0, 5)
+    node(0, 0, (4,))
+    node(0, 1, (4,), col=5)
+    node(0, 2, (5, 6))
+    chain(0, 4, (7,))
+    read = ch[0, :12].copy()
+    read[5] = read[6] = 3
+    align(0, [(r, r) for r in range(12)], read)
+    # 1: 44 nodes, trash 47
+    chain(1, trash - 3)
+    read = np.concatenate([ch[1, :10], rng.integers(0, 4, 5), ch[1, 10:20]])
+    align(1, [(r, r) for r in range(10)] + [(-1, j) for j in range(10, 15)]
+          + [(r, r + 5) for r in range(10, 20)], read)
+    # 2: a substitution and an insertion, overflow already set
+    chain(2, 15)
+    read = list(ch[2, 2:10]) + [2] + list(ch[2, 10:13])
+    read[4] = other(read[4])
+    align(2, [(r, r - 2) for r in range(2, 10)] + [(-1, 8)]
+          + [(r, r - 1) for r in range(10, 13)], read)
+    ovf[2] = 1
+    # 3: sources 0-7 into node 8, then a chain
+    for _ in range(8):
+        node(3, int(rng.integers(0, 4)))
+    node(3, 1, tuple(range(8)))
+    chain(3, 6, (8,))
+    align(3, [(-1, 0)] + [(r, r - 7) for r in range(8, 13)],
+          [0] + list(ch[3, 8:13]))
+    # 4: ranks 3-15 again, rank 9 under another base
+    chain(4, 20)
+    read = ch[4, 3:16].copy()
+    read[6] = other(read[6])
+    align(4, [(r, r - 3) for r in range(3, 16)], read)
+    # 5: matches, deletions, matches, deletions, matches
+    chain(5, 30)
+    ents = [(r, r) for r in range(8)] + [(r, -1) for r in range(8, 14)] \
+        + [(r, r - 6) for r in range(14, 21)] \
+        + [(r, -1) for r in range(21, 24)] \
+        + [(r, r - 9) for r in range(24, 28)]
+    read = np.zeros(19, np.int32)
+    for r, j in ents:
+        if j >= 0:
+            read[j] = ch[5, r]
+    align(5, ents, read)
+    # 6: nothing to fuse
+    chain(6, 10)
+    seqs5[6, :10] = ch[6, :10]
+    # 7: 5 + 17 insertions around an 8-node chain, one base N
+    chain(7, 8)
+    read = np.concatenate([rng.integers(0, 4, 5), ch[7, :8],
+                           rng.integers(0, 4, 17)])
+    read[20] = 4
+    align(7, [(-1, j) for j in range(5)] + [(r, r + 5) for r in range(8)]
+          + [(-1, j) for j in range(13, 30)], read)
+    return (an, asx, ke, gminr, seqs5), (pn, pw, pt, gc, ch, gm, nn, tctr,
+                                         ovf)
 
 
 def chain_flags(predsp, nn_eff):
@@ -617,33 +753,63 @@ def _max_err(got, want):
                zip(got, want))
 
 
-def pk_compare(ops, st, an, asx, ke):
-    """K3, K4, K5 against their plain versions on one round's operands, and
-    K4 against K5.  Returns {kernel: max abs error}."""
+def fusion_compare(an, asx, ke, gminr, seq5, st):
+    """K4, K5 and both orders of their plain version on one round, and the
+    CPU model of K4's phases (tests/torch_fusion_model.py) on copies.
+    Returns ({pair: max abs error}, (K4's count of windows that took the
+    serial walk, the model's count of flagged windows))."""
     import torch
+    import torch_fusion_model as tfm
     from svscope_tpu_torch.ops import poa_fused_kernel as tpk
-    *k3_ops, gminr = ops
-    k3 = tpk.align_tb_cuda(*k3_ops)
-    torch.cuda.synchronize()
-    p3 = tpk.align_tb_reference(*k3_ops)
-    errs = {"K3": _max_err(k3, p3)}
-    if _max_err(k3, (an, asx, ke)):
-        raise RuntimeError("K3 differs from the build's own K3 output")
-    seq5 = k3_ops[3][:, 1:].contiguous()     # seqv without its pad column
+    nflag = torch.zeros(1, dtype=torch.int32, device=an.device)
     out = {}
     for name, fn, order in (("K4", tpk.fusion_cuda, "lockstep"),
                             ("K5", tpk.fusion_cuda, "seq"),
                             ("P4", tpk.fusion_reference, "lockstep"),
                             ("P5", tpk.fusion_reference, "seq")):
         s2 = st.clone()
-        path = fn(an, asx, ke, gminr, seq5, s2, order)
+        extra = {"fallbacks": nflag} if name == "K4" else {}
+        path = fn(an, asx, ke, gminr, seq5, s2, order, **extra)
         torch.cuda.synchronize()
-        out[name] = [path] + s2.tensors()
-    errs["K4"] = _max_err(out["K4"], out["P4"])
-    errs["K5"] = _max_err(out["K5"], out["P5"])
-    errs["K4-K5"] = _max_err(out["K4"], out["K5"])
-    errs["P4-P5"] = _max_err(out["P4"], out["P5"])
-    return errs
+        out[name] = [t.cpu() for t in [path] + s2.tensors()]
+    sm = tpk.GraphState(*[t.cpu() for t in st.tensors()]).clone()
+    path, flagged = tfm.fuse_parallel(
+        *[t.cpu() for t in (an, asx, ke, gminr, seq5)], sm)
+    out["model"] = [path] + sm.tensors()
+    errs = {"K4": _max_err(out["K4"], out["P4"]),
+            "K5": _max_err(out["K5"], out["P5"]),
+            "K4-K5": _max_err(out["K4"], out["K5"]),
+            "P4-P5": _max_err(out["P4"], out["P5"]),
+            "model-P4": _max_err(out["model"], out["P4"])}
+    return errs, (int(nflag.item()), int(flagged.sum()))
+
+
+def pk_compare(ops, st, an, asx, ke):
+    """K3 against its plain version (and the build's own K3 output) on one
+    round's operands, then fusion_compare.  Returns ({kernel or pair: max
+    abs error}, (K4's serial-walk windows, the model's flagged
+    windows))."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    *k3_ops, gminr = ops
+    k3 = tpk.align_tb_cuda(*k3_ops)
+    torch.cuda.synchronize()
+    p3 = tpk.align_tb_reference(*k3_ops)
+    if _max_err(k3, (an, asx, ke)):
+        raise RuntimeError("K3 differs from the build's own K3 output")
+    seq5 = k3_ops[3][:, 1:].contiguous()     # seqv without its pad column
+    errs, flags = fusion_compare(an, asx, ke, gminr, seq5, st)
+    return {"K3": _max_err(k3, p3), **errs}, flags
+
+
+def fusion_edge_tensors(dev):
+    """fusion_edge_case's round as tensors on `dev`: (an, asx, ke, gminr,
+    seqs5) and the GraphState."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    ops, state = fusion_edge_case()
+    return ([torch.from_numpy(a).to(dev) for a in ops],
+            tpk.GraphState(*[torch.from_numpy(a).to(dev) for a in state]))
 
 
 def k3_parity(arrs, dev, what):
@@ -661,15 +827,26 @@ def k3_parity(arrs, dev, what):
 
 
 def check_pk_kernels(dev):
-    """Phase 6: K3/K4/K5 == plain on captured real rounds; K3 == plain on
-    the edge windows and on random graphs at N = 3073.  Returns the max
-    error per kernel and the bench round-12 and heavy round-200 captures
-    for phase 7."""
+    """Phase 6: K3/K4/K5 == plain on captured real rounds, K4/K5 == plain
+    on the fusion edge states, K4's serial-walk windows == the model's on
+    all of them; K3 == plain on the edge windows and on random graphs at
+    N = 3073.  Returns the max error per kernel, the bench round-12 and
+    heavy round-200 captures for phase 7, and K4's serial-walk windows per
+    round checked."""
     import localgraph_golden as lgg
     max_err = {"K3": 0, "K4": 0, "K5": 0}
     cases = (("bench256", PK_BATCH, PK_BENCH_ROUNDS),
              ("heavy32x400", None, (PK_HEAVY_ROUND,)))
-    keep = {}
+    keep, serial_walks = {}, {}
+
+    def check(errs, flags, what):
+        if any(errs.values()) or flags[0] != flags[1]:
+            raise RuntimeError(f"pk kernel != plain or K4's serial-walk "
+                               f"windows != the model's on {what}: {errs}, "
+                               f"flagged (K4, model) {flags}")
+        for k in max_err:
+            max_err[k] = max(max_err[k], errs.get(k, 0))
+        serial_walks[what] = flags[0]
     for name, n, rounds in cases:
         t0 = time.perf_counter()
         wins = lgg.make_workload(name)[:n]
@@ -677,18 +854,27 @@ def check_pk_kernels(dev):
                                       dev)
         for r in rounds:
             ops, st, an, asx, ke = caps[r]
-            errs = pk_compare(ops, st, an, asx, ke)
-            if any(errs.values()):
-                raise RuntimeError(f"pk kernel != plain on {name} round "
-                                   f"{r + 1}: {errs}")
-            for k in max_err:
-                max_err[k] = max(max_err[k], errs[k])
+            errs, flags = pk_compare(ops, st, an, asx, ke)
+            check(errs, flags, f"{name} round {r + 1}")
             phase("pk-parity", t0, f"{name} bucket (R, L, N)={bucket} "
                   f"B={len(wins)} round {r + 1}: max nodes "
-                  f"{int(st.nn.max())}, K3==plain, K4==plain, K5==plain, "
-                  f"K4==K5 (errors {errs})")
+                  f"{int(st.nn.max())}, windows with ovf set "
+                  f"{int((st.ovf > 0).sum())}, K3==plain, K4==plain, "
+                  f"K5==plain, K4==K5, model==plain (errors {errs}); K4's "
+                  f"serial-walk windows {flags[0]} == the model's {flags[1]}")
         keep[name] = caps[PK_BENCH_ROUNDS[1] if name == "bench256"
                           else PK_HEAVY_ROUND]
+    t0 = time.perf_counter()
+    (an, asx, ke, gminr, seq5), st = fusion_edge_tensors(dev)
+    errs, flags = fusion_compare(an, asx, ke, gminr, seq5, st)
+    check(errs, flags, "edge states")
+    if flags[0] != 3:
+        raise RuntimeError(f"K4 took the serial walk in {flags[0]} edge "
+                           "windows, expected 3 (cases 1-3)")
+    phase("pk-parity", t0, f"K4/K5 edge states B=8 ncap=48 l_max=40 "
+          f"({'; '.join(FUSION_EDGE_CASES)}): K4==plain, K5==plain, "
+          f"K4==K5, model==plain (errors {errs}); K4's serial-walk windows "
+          f"{flags[0]} == the model's {flags[1]}")
     t0 = time.perf_counter()
     err = k3_parity(pk_layout(*k3_edge_case(), 64), dev, "edge windows")
     max_err["K3"] = max(max_err["K3"], err)
@@ -704,7 +890,7 @@ def check_pk_kernels(dev):
         phase("pk-parity", t0, f"K3 random graphs N={PK_NCAP_MAX} "
               f"l_max={l_max} B={B} (nodes {int(arrs[3].min())}-"
               f"{int(arrs[3].max())}): K3==plain")
-    return max_err, keep["bench256"], keep["heavy32x400"]
+    return max_err, keep["bench256"], keep["heavy32x400"], serial_walks
 
 
 def k3_args(cap):
@@ -728,54 +914,125 @@ def k3_bound(cap):
                  poa_ops(predsp, nn_eff, lb, slot0_copies=True))
 
 
+def fusion_args(cap):
+    """K4's and K5's operands of one captured round, the state last:
+    (an, asx, ke, gminr, seq5, state)."""
+    ops, st, an, asx, ke = cap
+    return an, asx, ke, ops[6], ops[3][:, 1:].contiguous(), st
+
+
+def fusion_bound(cap):
+    """K4's and K5's bound on one captured round (data-dependent: what this
+    round's in-place update must move): the window's entries (an, asx)
+    and ke read once, a base per valid entry, a column id and a gc lookup
+    per node entry, the pred row (32 bytes) of each valid entry that
+    creates no node; the state elements the round changes, the path
+    (B, l_max) and the counters written once.  Its integer work is a few
+    ops per entry, below the bytes' time."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    an, asx, ke, gminr, seq5, st = fusion_args(cap)
+    after = st.clone()
+    tpk.fusion_cuda(an, asx, ke, gminr, seq5, after)
+    torch.cuda.synchronize()
+    B, out_len = an.shape
+    live = torch.arange(out_len, device=an.device)[None, :] > \
+        ke.long()[:, None]
+    valid = live & (asx >= 0)
+    n_valid = int(valid.sum())
+    n_new = int((after.nn.long() - st.nn.long()).sum())
+    changed = sum(int((a != b).sum()) for a, b in
+                  zip(st.tensors(), after.tensors()))
+    nbytes = 8 * int(live.sum()) + 4 * B + 4 * n_valid \
+        + 8 * int((valid & (an >= 0)).sum()) + 32 * max(n_valid - n_new, 0) \
+        + 4 * changed + 4 * seq5.numel()
+    return bound(nbytes, 0), int(live.sum())
+
+
+def single_call_ms(setup, fn, dev, reps, hold):
+    """Mean ms of fn(*setup()) over `reps` calls, each timed alone by CUDA
+    events right after setup() made its fresh inputs (still in L2): with
+    `hold` the call is queued behind torch.cuda._sleep (device time
+    alone), else the events bracket the host's issue of it too (the
+    earlier single-call timing)."""
+    import torch
+    from svscope_tpu_torch.tools.timing import HOLD_CYCLES, HOLD_TRIES
+    fn(*setup())
+    total = 0.0
+    cycles = HOLD_CYCLES
+    for _ in range(reps):
+        for _try in range(HOLD_TRIES):
+            args = setup()
+            torch.cuda.synchronize(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            if hold:
+                torch.cuda._sleep(cycles)
+            start.record()
+            fn(*args)
+            end.record()
+            ahead = not start.query()
+            torch.cuda.synchronize(dev)
+            if ahead or not hold:
+                break
+            cycles *= 4                       # hold longer, call again
+        else:
+            raise RuntimeError("the host did not issue one call within a "
+                               f"{cycles // 4}-cycle hold")
+        total += start.elapsed_time(end)
+    return total / reps
+
+
 def time_pk_kernels(bench_cap, heavy_cap, dev):
     """Phase 7: each pk kernel and its plain version on the bench batch the
-    port launches (128 windows, round 12), and K3 at the heavy capture
-    (32 windows, round 200): kernel calls queued ahead of the device
-    (tools/timing.py), plain versions as they run."""
+    port launches (128 windows, round 12) and at the heavy capture (32
+    windows, round 200): kernel calls queued ahead of the device
+    (tools/timing.py), plain versions as they run.  K4 and K5 also one call
+    at a time right after a fresh state clone, queued and with the host's
+    issue (single_call_ms).  Returns ({name: (kernel ms, plain ms)},
+    {name: bound}, {name: (single queued ms, single issued ms)})."""
     from svscope_tpu_torch.ops import poa_fused_kernel as tpk
     from svscope_tpu_torch.tools.timing import time_call, time_each
     t0 = time.perf_counter()
-    ops, st, an, asx, ke = bench_cap
-    _charsr, _sinksr, _predsp, seqv, lb, nn_eff, gminr = ops
-    seq5 = seqv[:, 1:].contiguous()
-    times, bounds = {}, {}
-    for name, cap, plain_reps in (("K3", bench_cap, 2),
-                                  ("K3 heavy", heavy_cap, 1)):
+    times, bounds, singles, entries = {}, {}, {}, {}
+    for sfx, cap, k3_plain, fuse_plain in (("", bench_cap, 2, (2, 1)),
+                                           (" heavy", heavy_cap, 1, (1, 1))):
         args = k3_args(cap)
-        times[name] = (
+        times["K3" + sfx] = (
             time_call(lambda: tpk.align_tb_cuda(*args), dev, 20, True),
-            time_call(lambda: tpk.align_tb_reference(*args), dev,
-                      plain_reps, False))
-        bounds[name] = k3_bound(cap)
-
-    def fuse_setup(order):
-        return lambda: (an, asx, ke, gminr, seq5, st.clone(), order)
-    for k, order, reps in (("K4", "lockstep", 2), ("K5", "seq", 1)):
-        times[k] = (time_each(fuse_setup(order), tpk.fusion_cuda, dev, 20,
-                              True),
-                    time_each(fuse_setup(order), tpk.fusion_reference, dev,
-                              reps, False))
-    cells = int((nn_eff.long() * lb.long()).sum())
-    entries = int((an.shape[1] - 1 - ke.long()).sum())
-    # fusion: alignment and graph state read once, path (B, l_max) int32
-    # and graph state written once; its integer work is a few ops per entry
-    state = st.tensors()
-    fuse_bytes = tensor_bytes(an, asx, ke, gminr, seq5, *state, *state) \
-        + seq5.numel() * 4
-    bounds["K4"] = bounds["K5"] = bound(fuse_bytes, 0)
-    hv = k3_shape(heavy_cap)
-    _c, _s, _p, _q, h_lb, h_nn = k3_args(heavy_cap)
-    phase("pk-time", t0, f"B={seqv.shape[0]} N={gminr.shape[1]} "
-          f"l_max={seqv.shape[1] - 1} round {PK_BENCH_ROUNDS[1] + 1} "
-          f"({cells} DP cells, {entries} alignment entries); K3 heavy "
-          f"B={hv['B']} N={hv['N']} l_max={hv['l_max']} round "
-          f"{PK_HEAVY_ROUND + 1} ({int((h_nn.long() * h_lb.long()).sum())} "
-          "DP cells); kernel calls queued ahead of the device: " + ", ".join(
+            time_call(lambda: tpk.align_tb_reference(*args), dev, k3_plain,
+                      False))
+        bounds["K3" + sfx] = k3_bound(cap)
+        *fargs, st = fusion_args(cap)
+        fb, entries[sfx] = fusion_bound(cap)
+        for k, order, reps in (("K4", "lockstep", fuse_plain[0]),
+                               ("K5", "seq", fuse_plain[1])):
+            def setup(order=order):
+                return (*fargs, st.clone(), order)
+            times[k + sfx] = (
+                time_each(setup, tpk.fusion_cuda, dev, 20, True),
+                time_each(setup, tpk.fusion_reference, dev, reps, False))
+            singles[k + sfx] = tuple(
+                single_call_ms(setup, tpk.fusion_cuda, dev, 20, hold)
+                for hold in (True, False))
+            bounds[k + sfx] = fb
+    shapes = []
+    for sfx, cap, r in (("", bench_cap, PK_BENCH_ROUNDS[1]),
+                        (" heavy", heavy_cap, PK_HEAVY_ROUND)):
+        s = k3_shape(cap)
+        _c, _s, _p, _q, lb, nn_eff = k3_args(cap)
+        shapes.append(f"{'bench' if not sfx else 'heavy'} B={s['B']} "
+                      f"N={s['N']} l_max={s['l_max']} round {r + 1} "
+                      f"({int((nn_eff.long() * lb.long()).sum())} DP cells, "
+                      f"{entries[sfx]} alignment entries)")
+    phase("pk-time", t0, "; ".join(shapes) + "; kernel calls queued ahead "
+          "of the device: " + ", ".join(
               f"{k} kernel {a:.4f} ms plain {b:.4f} ms bound "
               f"{bounds[k][0]:.4f} ms ({bounds[k][1]})" for k, (a, b) in
-              times.items()))
-    return times, bounds
+              times.items()) + "; one call after a fresh state clone, "
+          "queued / issued: " + ", ".join(
+              f"{k} {a:.4f} / {b:.4f} ms" for k, (a, b) in singles.items()))
+    return times, bounds, singles
 
 
 def run_fused_workload(name, golden, dev, runs, device_recs=None,
@@ -1352,20 +1609,23 @@ def check_int16_probe(dev):
 
 # A/B of the redesigned kernels between source trees (--ab): each tree's
 # own wrappers and kernels, in a process of its own, on inputs this script
-# saved; only align_batch_cuda, nw_stats_cuda, align_tb_cuda, int16_op_cuda
-# and tools.timing.time_call, which every tree with the kernel measurement
-# tools (tools/timing.py) has with these signatures, are used; a tree whose
-# align_tb_cuda still takes the chain-row flags gets them as its fourth
-# argument (the K3 cases carry them last).  The int16 cases carry
-# torch.maximum and torch.roll on the same arrays beside them.
+# saved; only align_batch_cuda, nw_stats_cuda, align_tb_cuda, fusion_cuda,
+# GraphState, int16_op_cuda and tools.timing.time_call / time_each, which
+# every tree with the kernel measurement tools (tools/timing.py) has with
+# these signatures, are used; a tree whose align_tb_cuda still takes the
+# chain-row flags gets them as its fourth argument (the K3 cases carry them
+# last).  K4 and K5 update the state in place: every call gets a fresh
+# clone, all made before the timing.  The int16 cases carry torch.maximum
+# and torch.roll on the same arrays beside them.
 AB_SNIPPET = """
 import inspect, json, sys, torch
 sys.path.insert(0, sys.argv[1])
 from svscope_tpu_torch.ops import nw_kernel, poa_align, poa_fused_kernel
 from svscope_tpu_torch.tools.probe import int16_probe
-from svscope_tpu_torch.tools.timing import time_call
+from svscope_tpu_torch.tools.timing import time_call, time_each
 dev = torch.device("cuda", 0)
-k3 = poa_fused_kernel.align_tb_cuda
+pfk = poa_fused_kernel
+k3 = pfk.align_tb_cuda
 k3_chainw = "chainw" in inspect.signature(k3).parameters
 fns = {"k1": lambda a, w: poa_align.align_batch_cuda(*a, w),
        "k2": lambda a, w: nw_kernel.nw_stats_cuda(*a, w),
@@ -1377,16 +1637,23 @@ fns = {"k1": lambda a, w: poa_align.align_batch_cuda(*a, w),
 out = {}
 for name, (kind, args, width, reps) in torch.load(sys.argv[2]).items():
     a = [t.to(dev) for t in args]
-    out[name] = time_call(lambda: fns[kind](a, width), dev, reps, queued=True)
+    if kind in ("k4", "k5"):
+        out[name] = time_each(lambda: (*a[:5], pfk.GraphState(*[
+            t.clone() for t in a[5:]]), width), pfk.fusion_cuda, dev, reps,
+            queued=True)
+    else:
+        out[name] = time_call(lambda: fns[kind](a, width), dev, reps,
+                              queued=True)
 print(json.dumps(out))
 """
 
 
-def ab_inputs(path, misscore_groups, misscore_pairs, k3_cases):
+def ab_inputs(path, misscore_groups, misscore_pairs, pk_cases):
     """Save the A/B cases (CPU tensors): K1 at the k1-time and heavy
-    shapes, K2 per bucket of misscore4096, K3 on the captured rounds of
-    `k3_cases` (their chain-row flags last, for trees that take them),
-    every int16 probe op and torch.maximum / torch.roll on the
+    shapes, K2 per bucket of misscore4096, K3 (its chain-row flags last,
+    for trees that take them), K4 and K5 on the captured rounds of
+    `pk_cases` ({name: (K3's operands, fusion_args with the state's
+    tensors)}), every int16 probe op and torch.maximum / torch.roll on the
     probe's (262144, 128) timing arrays."""
     import numpy as np
     import torch
@@ -1406,10 +1673,12 @@ def ab_inputs(path, misscore_groups, misscore_pairs, k3_cases):
         cases[f"k2 misscore4096 bucket {bucket}"] = (
             "k2", [torch.from_numpy(np.ascontiguousarray(x))
                    for x in ag.pad_pairs(sub, bucket)], bucket, 5)
-    for name, args in k3_cases.items():
+    for name, (args, fargs) in pk_cases.items():
         chainw = chain_flags(args[2].numpy(), args[5].numpy())
         cases[f"k3 {name}"] = ("k3", [*args, torch.from_numpy(chainw)], 0,
                                20)
+        cases[f"k4 {name}"] = ("k4", fargs, "lockstep", 20)
+        cases[f"k5 {name}"] = ("k5", fargs, "seq", 20)
     big = ip.large_inputs(INT16_ROWS, "cpu")
     for op in ip.ALL_OPS:
         cases[f"i16 {op}"] = ("i16", big, op, 20)
@@ -1418,14 +1687,14 @@ def ab_inputs(path, misscore_groups, misscore_pairs, k3_cases):
     torch.save(cases, path)
 
 
-def run_ab(trees, misscore_groups, misscore_pairs, k3_cases):
+def run_ab(trees, misscore_groups, misscore_pairs, pk_cases):
     """The A/B cases' times in each tree of `trees` (this checkout is ".")
     on the same inputs, in turns: each tree, then each again in reverse
     order.  Prints one line per turn and the per-case times."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "ab_inputs.pt")
-        ab_inputs(path, misscore_groups, misscore_pairs, k3_cases)
+        ab_inputs(path, misscore_groups, misscore_pairs, pk_cases)
         res = {}
         for tree in list(trees) + list(reversed(trees)):
             root = os.path.abspath(os.path.join(HERE, tree))
@@ -1475,7 +1744,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--ab", nargs="+", metavar="TREE", default=None,
-                    help="after the phases, time K1, K2, K3 and the int16 "
+                    help="after the phases, time K1-K5 and the int16 "
                     "probe's ops of each source tree (a checkout's root, relative to this script; '.' "
                     "is this one) in turns on the same inputs")
     args = ap.parse_args(argv)
@@ -1513,14 +1782,17 @@ def main(argv=None):
     launches = bench_launches + heavy_launches
     check_cli(golden)
 
-    pk_err, bench_cap, heavy_cap = check_pk_kernels(dev)
-    pk_ms, pk_bounds = time_pk_kernels(bench_cap, heavy_cap, dev)
-    k3_ab = {}
+    pk_err, bench_cap, heavy_cap, serial_walks = check_pk_kernels(dev)
+    pk_ms, pk_bounds, pk_single = time_pk_kernels(bench_cap, heavy_cap, dev)
+    pk_ab = {}
     for name, r, cap in (("bench256", PK_BENCH_ROUNDS[1], bench_cap),
                          ("heavy32x400", PK_HEAVY_ROUND, heavy_cap)):
         s = k3_shape(cap)
-        k3_ab[f"{name} round {r + 1} B={s['B']} N={s['N']} "
-              f"l_max={s['l_max']}"] = [t.cpu() for t in k3_args(cap)]
+        *fargs, st = fusion_args(cap)
+        pk_ab[f"{name} round {r + 1} B={s['B']} N={s['N']} "
+              f"l_max={s['l_max']}"] = (
+            [t.cpu() for t in k3_args(cap)],
+            [t.cpu() for t in (*fargs, *st.tensors())])
     heavy_shape = k3_shape(heavy_cap)
     del bench_cap, heavy_cap
     pk_launches, _recs, _ws = run_fused_workload("bench256", golden, dev, 3,
@@ -1551,7 +1823,7 @@ def main(argv=None):
               "fusebody": check_fusebody_probe(dev),
               "int16": check_int16_probe(dev)}
     if args.ab:
-        run_ab(args.ab, k2_groups, k2_pairs, k3_ab)
+        run_ab(args.ab, k2_groups, k2_pairs, pk_ab)
 
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "svscope_tpu"))
@@ -1590,14 +1862,20 @@ def main(argv=None):
             entry["launches"] += heavy_pk[k]
             entry["launches_bench256"] = pk_launches[k]
             entry["launches_heavy32x400"] = heavy_pk[k]
-        if k == "K3":
-            # K3 at the heavy capture, as timed
-            entry["heavy_shape"] = {**heavy_shape,
-                                    "round": PK_HEAVY_ROUND + 1,
-                                    "ms": pk_ms["K3 heavy"][0],
-                                    "plain_ms": pk_ms["K3 heavy"][1],
-                                    "bound_ms": pk_bounds["K3 heavy"][0],
-                                    "bound_by": pk_bounds["K3 heavy"][1]}
+        # each pk kernel at the heavy capture, as timed
+        entry["heavy_shape"] = {**heavy_shape, "round": PK_HEAVY_ROUND + 1,
+                                "ms": pk_ms[k + " heavy"][0],
+                                "plain_ms": pk_ms[k + " heavy"][1],
+                                "bound_ms": pk_bounds[k + " heavy"][0],
+                                "bound_by": pk_bounds[k + " heavy"][1]}
+        if k in ("K4", "K5"):
+            # one call after a fresh state clone: queued, and issued
+            entry["single_call_ms"] = {
+                sh: {"queued": pk_single[k + sfx][0],
+                     "issued": pk_single[k + sfx][1]}
+                for sh, sfx in (("bench", ""), ("heavy", " heavy"))}
+        if k == "K4":
+            entry["serial_walk_windows"] = serial_walks
         kernels.append(entry)
     k2 = row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches, k2_err, k2_ms,
              k2_plain_ms, k2_bound)

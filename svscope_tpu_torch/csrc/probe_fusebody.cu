@@ -1,5 +1,8 @@
-// Fusion-body probe on Hopper: K4's per-entry cost, split into reads,
-// writes and logic.
+// Fusion-body probe on Hopper: the per-entry cost of the serial fusion
+// body (one thread per window walking its entries in order, K4's first
+// design), split into reads, writes and logic.  K4 now fuses a round in
+// parallel phases; the probe keeps the serial body on purpose, as the
+// price of one step of the serial walk (K5, and K4's flagged windows).
 //
 // Replaces tools/probe/fusebody_probe.py::run (its Pallas kernel,
 // make_kernel), the TPU probe that ran the pk kernel's fusion body alone on
@@ -18,24 +21,25 @@
 //   noveccarry  the counter loop; nn_out gets the step count
 //
 // The state is the port's struct-of-arrays GraphState (pn, pw, pt, gc, ch,
-// gm; ops/poa_fused_kernel.py), as K4 (csrc/poa_pk_fusion.cu) keeps it, so
-// the probe prices K4's own memory traffic; it is updated in place.  One
-// thread per window, as K4, over the entries k0 .. out_len-1 (the JAX
+// gm; ops/poa_fused_kernel.py), as K4 and K5 (csrc/poa_pk_fusion.cu) keep
+// it, so the probe prices their memory traffic; it is updated in place.
+// One thread per window, over the entries k0 .. out_len-1 (the JAX
 // probe: the last 480).  The loops of empty, scal16 and noveccarry carry
 // their counter through an empty asm statement, so the compiler keeps one
 // iteration per step instead of folding the count.
 //
-// Where `full` differs from K4's fuse_entry: the creator writes only the
-// lanes the TPU kernel's masked-lane write touched (ch, gm, and its own
-// gchar entry when it starts a column), where fuse_entry writes the whole
+// Where `full` differs from the serial step (walk_entry of
+// csrc/poa_pk_fusion.cu): the creator writes only the lanes the TPU
+// kernel's masked-lane write touched (ch, gm, and its own gchar entry when
+// it starts a column), where walk_entry writes the whole
 // new row (pred slots and every gchar entry); a creator that joins an
 // existing column does not write that column's gchar entry; and there is
 // no overflow flag (a full pred row only skips the edge).
 //
-// What bounds it: as K4, one dependent chain of global reads and writes per
-// entry per window (the column's member, then the target row's pred
-// slots); with 8 windows the card runs one warp, so the time is that
-// chain's latency times the entry count.
+// What bounds it: as the serial walk, one dependent chain of global reads
+// and writes per entry per window (the column's member, then the target
+// row's pred slots); with 8 windows the card runs one warp, so the time is
+// that chain's latency times the entry count.
 
 #include <cstdint>
 #include <cuda_runtime.h>

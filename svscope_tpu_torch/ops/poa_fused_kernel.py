@@ -6,10 +6,12 @@ plain torch versions (counterpart of svscope_tpu/ops/poa_fused_kernel.py).
     — K1's row pass (csrc/poa_row.cuh) on the pk layout, one launch a
     round.  Plain version: `align_tb_reference`.
   * K4/K5 `fusion` (csrc/poa_pk_fusion.cu): fuse each window's alignment
-    into its graph state, in place — K4 one thread per window (lockstep),
-    K5 one thread per group of 8 windows in order.  `fusion_engine()`
-    reads SVSCOPE_PK_FUSION ("lockstep", the default, or "seq") at every
-    call.  Plain version: `fusion_reference(order=...)`.
+    into its graph state, in place — K4 one block per window, the round in
+    a fixed number of parallel phases, a window its phases cannot fuse
+    exactly (detected before any write) taking the serial walk; K5 the
+    serial walk itself, one warp per window.  `fusion_engine()` reads
+    SVSCOPE_PK_FUSION ("lockstep", the default, or "seq") at every call.
+    Plain version of both: `fusion_reference(order=...)`.
 
 CUDA tensors go to the kernels, CPU tensors to the plain versions; any other
 device raises, and so does a kernel that fails to build or launch.
@@ -42,7 +44,7 @@ ALIGN_SOURCE = "poa_pk_align.cu"
 FUSION_SOURCE = "poa_pk_fusion.cu"
 SOURCES = (ALIGN_SOURCE, FUSION_SOURCE)
 FUSION_ENGINES = ("lockstep", "seq")
-SEQ_GROUP = 8              # K5: windows per thread, walked in order
+SEQ_GROUP = 8              # JAX's seq kernel: windows per grid step
 # gs lane fields of the JAX layout (svscope_tpu/ops/poa_fused_kernel.py)
 GS_LANES = 128
 L_PN, L_PW, L_PT, L_GC, L_CH, L_GM = 0, 8, 16, 24, 32, 33
@@ -315,9 +317,10 @@ def _fuse_windows(w, an, asx, ke, gminr, seqs5, g, path, trash: int):
 
 def fusion_reference(an, asx, ke, gminr, seqs5, st: GraphState,
                      order: str = "lockstep"):
-    """Plain torch K4 (order="lockstep": every window at once, one entry
-    per window per step) and K5 (order="seq": window g of every group of 8
-    at once, for g = 0..7 in turn, as K5's threads walk their groups).
+    """Plain torch K4 and K5: the serial fusion of each window, windows
+    being independent (order="lockstep": every window at once, one entry
+    per window per step; order="seq": window g of every group of 8 at
+    once, for g = 0..7 in turn, as JAX's seq kernel walks a grid step).
 
     an/asx (B, out_len), ke (B,): K3's output; gminr (B, n_max) pre-round
     column ids by rank; seqs5 (B, l_max) the reads' base codes.  Updates
@@ -352,20 +355,41 @@ def fusion_reference(an, asx, ke, gminr, seqs5, st: GraphState,
     return path[:, :l_max].contiguous()
 
 
-def _fusion_fn():
-    if "fusion" not in _fns:
-        fn = load_cuda_lib(FUSION_SOURCE).pk_fusion_launch
+def fusion_smem_bytes(ncap: int, l_max: int, out_len: int) -> int:
+    """K4's dynamic shared memory (csrc/poa_pk_fusion.cu fusion_smem, which
+    refuses a launch past a block's limit): a window's out_len entries
+    staged as four int32 (read position, old column, cur, code), then
+    bitmaps over the keys (ncap x 5), the curs (ncap) and the read
+    positions (l_max)."""
+    words = -(-ncap * ALPHA5 // 32) + -(-ncap // 32) + -(-l_max // 32)
+    return 4 * (4 * out_len + words)
+
+
+def _fusion_fns():
+    """K4/K5's C entry points: the launch, the counted launch and K4's
+    shared-memory size."""
+    if "pk_fusion_launch" not in _fns:
+        lib = load_cuda_lib(FUSION_SOURCE)
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 15 + [ci] * 6 + [vp]
-        fn.restype = ci
-        _fns["fusion"] = fn
-    return _fns["fusion"]
+        for name, argtypes in (
+                ("pk_fusion_smem_bytes", [ci] * 3),
+                ("pk_fusion_launch_counted", [vp] * 15 + [ci] * 6 + [vp] * 2),
+                ("pk_fusion_launch", [vp] * 15 + [ci] * 6 + [vp])):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ci
+            _fns[name] = fn
+    return _fns
 
 
 def fusion_cuda(an, asx, ke, gminr, seqs5, st: GraphState,
-                order: str = "lockstep"):
+                order: str = "lockstep", fallbacks=None):
     """Launch K4 (order="lockstep") or K5 (order="seq") on CUDA tensors
-    (see fusion_reference); updates `st` in place, returns the path."""
+    (see fusion_reference); updates `st` in place, returns the path.
+    st.pn, st.pw and st.pt must be 16-byte aligned (whole pred rows move as
+    two 16-byte words).  `fallbacks`, a (1,) int32 tensor on the same
+    device, gets K4's count of windows that took the serial walk added
+    (K5 walks every window and adds nothing)."""
     if order not in FUSION_ENGINES:
         raise ValueError(f"order {order!r}: one of {FUSION_ENGINES}")
     dev = an.device
@@ -388,16 +412,25 @@ def fusion_cuda(an, asx, ke, gminr, seqs5, st: GraphState,
                            ("nn", st.nn, (B,)), ("tctr", st.tctr, (B,)),
                            ("ovf", st.ovf, (B,))):
         check_tensor(name, t, i32, shape, dev)
+    if fallbacks is not None:
+        check_tensor("fallbacks", fallbacks, i32, (1,), dev)
+    if any(t.data_ptr() % 16 for t in (st.pn, st.pw, st.pt)):
+        raise ValueError("st.pn, st.pw and st.pt must be 16-byte aligned")
     path = torch.full((B, l_max), -1, dtype=i32, device=dev)
-    fn = _fusion_fn()
+    fns = _fusion_fns()
+    ptrs = (an.data_ptr(), asx.data_ptr(), ke.data_ptr(), gminr.data_ptr(),
+            seqs5.data_ptr(), st.pn.data_ptr(), st.pw.data_ptr(),
+            st.pt.data_ptr(), st.gc.data_ptr(), st.ch.data_ptr(),
+            st.gm.data_ptr(), st.nn.data_ptr(), st.tctr.data_ptr(),
+            st.ovf.data_ptr(), path.data_ptr(), B, ncap, n_max, l_max,
+            out_len, int(order == "seq"))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(an.data_ptr(), asx.data_ptr(), ke.data_ptr(),
-                gminr.data_ptr(), seqs5.data_ptr(), st.pn.data_ptr(),
-                st.pw.data_ptr(), st.pt.data_ptr(), st.gc.data_ptr(),
-                st.ch.data_ptr(), st.gm.data_ptr(), st.nn.data_ptr(),
-                st.tctr.data_ptr(), st.ovf.data_ptr(), path.data_ptr(),
-                B, ncap, n_max, l_max, out_len, int(order == "seq"), stream)
+        if fallbacks is None:
+            rc = fns["pk_fusion_launch"](*ptrs, stream)
+        else:
+            rc = fns["pk_fusion_launch_counted"](*ptrs, fallbacks.data_ptr(),
+                                                 stream)
     if rc != 0:
         raise RuntimeError(f"pk_fusion_launch failed: CUDA error {rc} "
                            f"(B={B}, ncap={ncap}, l_max={l_max})")

@@ -1,5 +1,8 @@
-"""Fusion-body probe: K4's per-entry cost on real graph states (counterpart
-of tools/probe/fusebody_probe.py, kernel csrc/probe_fusebody.cu).
+"""Fusion-body probe: the per-entry cost of the serial fusion body, one
+thread per window walking its entries in order — K4's design until K4 was
+rebuilt as parallel phases; the probe keeps that body on purpose, as the
+price of one serial step (counterpart of tools/probe/fusebody_probe.py,
+kernel csrc/probe_fusebody.cu).
 
 `build_states()` replays the bench workload's first 8 windows through the
 port's NumPy oracle (ops/poa.py) up to round 13 and returns the JAX

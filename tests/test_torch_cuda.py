@@ -1,8 +1,9 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (K1 and K1-int16; K3,
 K4, K5 of the fused pk build; K2 of the MisScore path; the row,
 fusion-body and int16 probes) against their plain torch versions, at the
-edges of K1's, K3's, K2's and the int16 probe's layouts too, and the slices' device paths and the
-measurement tools (K1's clock64 split among them), on the card.
+edges of K1's, K3's, K4's, K2's and the int16 probe's layouts too, and the
+slices' device paths and the measurement tools (K1's clock64 split among
+them), on the card.
 
 Marked `cuda`; they skip without a card.  This file imports no JAX, so it
 also runs on the GPU machine, which has none (and where tests/conftest.py,
@@ -141,8 +142,10 @@ def pk_rounds():
 @pytest.mark.parametrize("r", [0, 5, 20])
 def test_pk_kernels_match_plain(pk_rounds, r):
     ops, st, an, asx, ke = pk_rounds[r]
-    errs = chip_smoke.pk_compare(ops, st, an, asx, ke)
+    errs, (k4_walks, model_flags) = chip_smoke.pk_compare(ops, st, an, asx,
+                                                          ke)
     assert not any(errs.values()), errs
+    assert k4_walks == model_flags == 0
 
 
 def test_pk_kernels_count_launches_and_reject_bad_input(pk_rounds):
@@ -189,8 +192,48 @@ def test_k3_heavy_round_200(dev):
         [w.sequences for w in wins], (chip_smoke.PK_HEAVY_ROUND,), dev)
     ops, st, an, asx, ke = caps[chip_smoke.PK_HEAVY_ROUND]
     assert ops[0].shape[1] == chip_smoke.PK_NCAP_MAX
-    errs = chip_smoke.pk_compare(ops, st, an, asx, ke)
+    errs, flags = chip_smoke.pk_compare(ops, st, an, asx, ke)
     assert not any(errs.values()), errs
+    assert flags == (0, 0)
+
+
+def test_k4_k5_edge_states(dev):
+    """K4 == K5 == plain == the CPU model on the fusion edge states (a
+    duplicate key, the trash row reached, overflow set on entry, 8 full
+    pred slots, re-walked edges, runs of gaps, an empty alignment, a read
+    longer than its graph); K4 takes the serial walk in cases 1-3 only,
+    as the model flags them; one launch each."""
+    (an, asx, ke, gminr, seq5), st = chip_smoke.fusion_edge_tensors(dev)
+    before = dict(tpk.LAUNCHES)
+    errs, flags = chip_smoke.fusion_compare(an, asx, ke, gminr, seq5, st)
+    assert not any(errs.values()), errs
+    assert flags == (3, 3)
+    assert tpk.LAUNCHES["K4"] == before["K4"] + 1
+    assert tpk.LAUNCHES["K5"] == before["K5"] + 1
+
+
+def test_k4_shared_memory_plan_matches_the_kernel(dev):
+    """fusion_smem_bytes == the kernel's own size at every pk bucket."""
+    fn = tpk._fusion_fns()["pk_fusion_smem_bytes"]
+    for n in tpf.N_LADDER:
+        for l_max in tpf.L_LADDER:
+            assert fn(n + 1, l_max, n + l_max) == tpk.fusion_smem_bytes(
+                n + 1, l_max, n + l_max)
+
+
+def test_k4_rejects_unaligned_state(pk_rounds):
+    ops, st, an, asx, ke = pk_rounds[5]
+    seq5 = ops[3][:, 1:].contiguous()
+    bad = st.clone()
+    shifted = torch.empty(bad.pn.numel() + 1, dtype=torch.int32,
+                          device=an.device)[1:].view(bad.pn.shape)
+    shifted.copy_(bad.pn)
+    bad.pn = shifted
+    before = dict(tpk.LAUNCHES)
+    for order in tpk.FUSION_ENGINES:
+        with pytest.raises(ValueError):
+            tpk.fusion_cuda(an, asx, ke, ops[6], seq5, bad, order)
+    assert tpk.LAUNCHES == before
 
 
 def test_k3_rejects_unaligned_preds(pk_rounds):
