@@ -98,18 +98,25 @@ non-zero before the final line:
      device (CUDA events, tools/timing.py).
  19-21. row-probe, fusebody-probe, int16-probe: every variant or op of the
      three probes, kernel == plain at the tool's own shapes (the int16
-     ops on (262144, 128) arrays); then each tool's main on the card (the
-     probes' main path, launches counted from 0), which times every
-     variant against its plain version, the kernels' calls queued ahead of
-     the device, and max16 and roll16 beside torch.maximum and torch.roll.
+     ops on (262144, 128) arrays) and at the edges of the row and
+     fusion-body probes' layouts (the row probe, K1's tiles a thread:
+     B = 1 and 300, one row, rows of 1, 33, 1025 and 4096 columns, 1025
+     a partial tile of 3, 4096 four columns a thread; the fusion-body
+     probe, a warp per window over 256-entry tiles: 1, 255, 256, 257 and
+     all OUT_LEN entries, 1 and 9 windows); then each tool's main on the card (the probes' main path,
+     launches counted from 0), which times every variant against its
+     plain version, the kernels' calls queued ahead of the device, and
+     max16 and roll16 beside torch.maximum and torch.roll.
 
 With `--ab TREE ...` (source trees' roots, relative to this script; "."
 is this checkout), K1 at the k1-time and heavy shapes, K2 at every
 misscore4096 bucket, K3, K4 and K5 on the bench round-12 and heavy
-round-200 captures, and every int16 probe op at (262144, 128) with
-torch.maximum and torch.roll beside them are then timed in each tree's own
-build, a process per tree, on the same saved inputs, calls queued ahead,
-each tree twice in turns (phase `ab`).  A tree whose K3 still takes the
+round-200 captures, every row-probe variant at B=256, every fusion-body
+variant on the replayed states (a fresh state clone per call), and every
+int16 probe op at (262144, 128) with torch.maximum and torch.roll beside
+them are then timed in each tree's own build, a process per tree, on the
+same saved inputs, calls queued ahead, each tree twice in turns (phase
+`ab`).  A tree whose K3 still takes the
 chain-row flags gets them, rebuilt from the pk layout (chain_flags).
 
 Then one JSON line listing every kernel with its launches on the main path,
@@ -152,6 +159,18 @@ PK_HEAVY_ROUND = 199               # round 200
 PK_NCAP_MAX = 3073                 # the widest pk bucket (N_LADDER[-1] + 1)
 PK_WIDE_SHAPES = ((512, 32), (2048, 8))   # (l_max, B) of K3 at that ncap
 INT16_ROWS = 262144                # the int16 probe's timing arrays
+# The row probe's layout edges (B, nrows, l1): one window, more windows
+# than SMs, one row, and rows of 1, 33, 1025 and 4096 columns (K1's tiles a
+# thread 1, 1, 3 and 4, the last thread's tile partial at 1025; 4096 is
+# the widest row K1 takes, 1024 threads and a ring of 8 rows).
+ROW_PROBE_EDGES = ((1, 512, 513), (300, 512, 513), (8, 1, 513),
+                   (8, 512, 1), (8, 512, 33), (8, 512, 1025),
+                   (8, 512, 4096))
+# The fusion-body probe's edges: entries walked (the tile edges of its
+# 256-entry tiles, and all OUT_LEN = 1536), and window batches (windows
+# of the replayed 8, by index).
+FUSEBODY_EDGE_ENTRIES = (1, 255, 256, 257, 1536)
+FUSEBODY_EDGE_WINDOWS = ((0,), (0, 1, 2, 3, 4, 5, 6, 7, 0))
 PK_BATCH = 128                     # stage A's chunk (PIPELINE_CHUNK)
 K2_NAME = "nw_stats (K2, batched NW alignment stats: score, matches, length)"
 K2_REPLACES = "svscope_tpu/ops/nw_pallas.py:59"
@@ -161,10 +180,12 @@ K1_16_REPLACES = "svscope_tpu/ops/poa_pallas.py:117"
 INT16_MAX = 1024
 ATTACHED_B = 64
 PROBES = {
-    "row": ("row probe (K1's row loop, part by part)", "probe_row.cu",
+    "row": ("row probe (K1's chain row part by part, on K1's tiles a "
+            "thread and one barrier a row)", "probe_row.cu",
             "tools/probe/row_probe.py:100"),
-    "fusebody": ("fusion-body probe (the serial fusion body on replayed "
-                 "states)",
+    "fusebody": ("fusion-body probe (the serial fusion step on replayed "
+                 "states, on K5's layout: a warp per window, staged tiles, "
+                 "lane 0 walking)",
                  "probe_fusebody.cu", "tools/probe/fusebody_probe.py:232"),
     "int16": ("int16 op probe (int16 ops and packed s16x2 intrinsics)",
               "probe_int16.cu", "tools/probe/int16_mosaic_probe.py:58"),
@@ -1507,6 +1528,27 @@ def probe_summary(res, launches, bounds, libraries=None):
             "variants": rows}
 
 
+def row_probe_edge_inputs(b, nrows, l1, dev):
+    """Row-probe inputs of any shape: chars (b, nrows) and seqs (b, l1)
+    int32 in 65..68, seeded by the shape."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng([b, nrows, l1])
+    return (torch.from_numpy(rng.integers(65, 69, (b, nrows), np.int32))
+            .to(dev),
+            torch.from_numpy(rng.integers(65, 69, (b, l1), np.int32)).to(dev))
+
+
+def fusebody_windows(ops, st, idx):
+    """The fusion-body probe's operands and state for windows `idx` (any
+    count, repeats allowed), as new contiguous tensors."""
+    import torch
+    from svscope_tpu_torch.ops.poa_fused_kernel import GraphState
+    i = torch.tensor(idx, device=ops[0].device)
+    return ([t.index_select(0, i) for t in ops],
+            GraphState(*[t.index_select(0, i) for t in st.tensors()]))
+
+
 def check_row_probe(dev):
     """Phase 19: every row-probe variant, kernel == plain (B=256); then the
     tool's main on the card."""
@@ -1520,9 +1562,18 @@ def check_row_probe(dev):
         k = rp.row_probe_cuda(chars, seqs, v)
         torch.cuda.synchronize()
         errs[v] = _max_err([k], [rp.row_probe_reference(chars, seqs, v)])
+    for shape in ROW_PROBE_EDGES:
+        ec, es = row_probe_edge_inputs(*shape, dev)
+        for v in rp.VARIANTS:
+            k = rp.row_probe_cuda(ec, es, v)
+            torch.cuda.synchronize()
+            errs[v] = max(errs[v], _max_err(
+                [k], [rp.row_probe_reference(ec, es, v)]))
     if any(errs.values()):
         raise RuntimeError(f"row probe kernel != plain: {errs}")
-    phase("row-probe-parity", t0, f"B={b}, variants {list(rp.VARIANTS)}: "
+    phase("row-probe-parity", t0, f"B={b}, variants {list(rp.VARIANTS)}, "
+          f"and (B, nrows, l1) {list(ROW_PROBE_EDGES)} (tiles, threads "
+          f"{[rp.launch_config(e[2]) for e in ROW_PROBE_EDGES]}): "
           f"kernel==plain (errors {errs})")
     t0 = time.perf_counter()
     res, launches = probe_main_path("row-probe", rp, ["--device", "cuda"])
@@ -1555,11 +1606,23 @@ def check_fusebody_probe(dev):
         p = [*fp.fusebody_reference(v, *ops, sp, k0), *sp.tensors()]
         errs[v] = _max_err(k, p)
         nbytes[v] = fp.variant_bytes(v, st0, sk, k0)
+    edges = [(list(range(fp.W)), fp.OUT_LEN - n)
+             for n in FUSEBODY_EDGE_ENTRIES]
+    edges += [(list(idx), k0) for idx in FUSEBODY_EDGE_WINDOWS]
+    for idx, ek0 in edges:
+        eops, est = fusebody_windows(ops, st0, idx)
+        for v in fp.VARIANTS:
+            sk, sp = est.clone(), est.clone()
+            k = [*fp.fusebody_cuda(v, *eops, sk, ek0), *sk.tensors()]
+            torch.cuda.synchronize()
+            p = [*fp.fusebody_reference(v, *eops, sp, ek0), *sp.tensors()]
+            errs[v] = max(errs[v], _max_err(k, p))
     if any(errs.values()):
         raise RuntimeError(f"fusion-body probe kernel != plain: {errs}")
     phase("fusebody-probe-parity", t0, f"{fp.W} windows x {fp.STEPS} "
-          f"entries, variants {list(fp.VARIANTS)}: kernel==plain (errors "
-          f"{errs})")
+          f"entries, {FUSEBODY_EDGE_ENTRIES} entries, "
+          f"{[len(i) for i in FUSEBODY_EDGE_WINDOWS]} windows, variants "
+          f"{list(fp.VARIANTS)}: kernel==plain (errors {errs})")
     t0 = time.perf_counter()
     res, launches = probe_main_path("fusebody-probe", fp,
                                     ["--device", "cuda"])
@@ -1610,18 +1673,20 @@ def check_int16_probe(dev):
 # A/B of the redesigned kernels between source trees (--ab): each tree's
 # own wrappers and kernels, in a process of its own, on inputs this script
 # saved; only align_batch_cuda, nw_stats_cuda, align_tb_cuda, fusion_cuda,
-# GraphState, int16_op_cuda and tools.timing.time_call / time_each, which
-# every tree with the kernel measurement tools (tools/timing.py) has with
-# these signatures, are used; a tree whose align_tb_cuda still takes the
-# chain-row flags gets them as its fourth argument (the K3 cases carry them
-# last).  K4 and K5 update the state in place: every call gets a fresh
+# GraphState, int16_op_cuda, row_probe_cuda, fusebody_cuda and
+# tools.timing.time_call / time_each, which every tree with the kernel
+# measurement tools (tools/timing.py) has with these signatures, are used;
+# a tree whose align_tb_cuda still takes the chain-row flags gets them as
+# its fourth argument (the K3 cases carry them last).  K4, K5 and the
+# fusion-body probe update the state in place: every call gets a fresh
 # clone, all made before the timing.  The int16 cases carry torch.maximum
 # and torch.roll on the same arrays beside them.
 AB_SNIPPET = """
 import inspect, json, sys, torch
 sys.path.insert(0, sys.argv[1])
 from svscope_tpu_torch.ops import nw_kernel, poa_align, poa_fused_kernel
-from svscope_tpu_torch.tools.probe import int16_probe
+from svscope_tpu_torch.tools.probe import fusebody_probe, int16_probe
+from svscope_tpu_torch.tools.probe import row_probe
 from svscope_tpu_torch.tools.timing import time_call, time_each
 dev = torch.device("cuda", 0)
 pfk = poa_fused_kernel
@@ -1632,6 +1697,7 @@ fns = {"k1": lambda a, w: poa_align.align_batch_cuda(*a, w),
        "k3": lambda a, w: (k3(*a[:3], a[6], *a[3:6]) if k3_chainw
                            else k3(*a[:6])),
        "i16": lambda a, w: int16_probe.int16_op_cuda(w, *a),
+       "rowp": lambda a, w: row_probe.row_probe_cuda(*a, w),
        "torch.maximum": lambda a, w: torch.maximum(a[0], a[1]),
        "torch.roll": lambda a, w: torch.roll(a[0], 1, 1)}
 out = {}
@@ -1641,6 +1707,11 @@ for name, (kind, args, width, reps) in torch.load(sys.argv[2]).items():
         out[name] = time_each(lambda: (*a[:5], pfk.GraphState(*[
             t.clone() for t in a[5:]]), width), pfk.fusion_cuda, dev, reps,
             queued=True)
+    elif kind == "fbp":
+        k0 = fusebody_probe.OUT_LEN - fusebody_probe.STEPS
+        out[name] = time_each(lambda: (*a[:5], pfk.GraphState(*[
+            t.clone() for t in a[5:]]), k0), lambda *x:
+            fusebody_probe.fusebody_cuda(width, *x), dev, reps, queued=True)
     else:
         out[name] = time_call(lambda: fns[kind](a, width), dev, reps,
                               queued=True)
@@ -1653,14 +1724,18 @@ def ab_inputs(path, misscore_groups, misscore_pairs, pk_cases):
     shapes, K2 per bucket of misscore4096, K3 (its chain-row flags last,
     for trees that take them), K4 and K5 on the captured rounds of
     `pk_cases` ({name: (K3's operands, fusion_args with the state's
-    tensors)}), every int16 probe op and torch.maximum / torch.roll on the
-    probe's (262144, 128) timing arrays."""
+    tensors)}), every row-probe variant on the tool's inputs (B=256), every
+    fusion-body variant on the replayed states, every int16 probe op and
+    torch.maximum / torch.roll on the probe's (262144, 128) timing
+    arrays."""
     import numpy as np
     import torch
     import alnfeature_golden as ag
     from svscope_tpu_torch.ops import poa_device
     from svscope_tpu_torch.tools import workloads as tw
+    from svscope_tpu_torch.tools.probe import fusebody_probe as fp
     from svscope_tpu_torch.tools.probe import int16_probe as ip
+    from svscope_tpu_torch.tools.probe import row_probe as rp
     N, L, B = TIME_SHAPE
     cases = {}
     for name, arrs, width in (
@@ -1679,6 +1754,12 @@ def ab_inputs(path, misscore_groups, misscore_pairs, pk_cases):
                                20)
         cases[f"k4 {name}"] = ("k4", fargs, "lockstep", 20)
         cases[f"k5 {name}"] = ("k5", fargs, "seq", 20)
+    chars, seqs = rp.make_inputs(rp.B, "cpu")
+    for v in rp.VARIANTS:
+        cases[f"row probe {v}"] = ("rowp", [chars, seqs], v, 5)
+    *ops, st = fp.device_inputs(fp.build_states(), "cpu")
+    for v in fp.VARIANTS:
+        cases[f"fusebody probe {v}"] = ("fbp", [*ops, *st.tensors()], v, 10)
     big = ip.large_inputs(INT16_ROWS, "cpu")
     for op in ip.ALL_OPS:
         cases[f"i16 {op}"] = ("i16", big, op, 20)
@@ -1744,9 +1825,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description="Smoke run of the port on one "
                                  "GPU (see the module docstring).")
     ap.add_argument("--ab", nargs="+", metavar="TREE", default=None,
-                    help="after the phases, time K1-K5 and the int16 "
-                    "probe's ops of each source tree (a checkout's root, relative to this script; '.' "
-                    "is this one) in turns on the same inputs")
+                    help="after the phases, time K1-K5 and the three "
+                    "probes of each source tree (a checkout's root, "
+                    "relative to this script; '.' is this one) in turns on "
+                    "the same inputs")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available on this host",

@@ -1,8 +1,8 @@
-"""Fusion-body probe: the per-entry cost of the serial fusion body, one
-thread per window walking its entries in order — K4's design until K4 was
-rebuilt as parallel phases; the probe keeps that body on purpose, as the
-price of one serial step (counterpart of tools/probe/fusebody_probe.py,
-kernel csrc/probe_fusebody.cu).
+"""Fusion-body probe: the per-entry cost of the serial fusion step, split
+into reads, writes and logic, on the layout K5 runs it (and K4 runs it for
+a window it cannot fuse in parallel): one warp per window stages 256
+entries at a time in shared memory, lane 0 walks them (counterpart of
+tools/probe/fusebody_probe.py, kernel csrc/probe_fusebody.cu).
 
 `build_states()` replays the bench workload's first 8 windows through the
 port's NumPy oracle (ops/poa.py) up to round 13 and returns the JAX
@@ -13,17 +13,19 @@ the node counts nn (8, 1).  `device_inputs` turns them into K4's layout: a
 GraphState (graph_state_from_jax) and (8, OUT_LEN) alignments.
 
 `fusebody(variant, ...)` runs the probe's fusion body over the last 480
-entries (from OUT_LEN - 480) of every window, one thread per window on the
-card and the plain torch version (`fusebody_reference`) on CPU tensors,
-and returns what the JAX variant returns: (nn_out (8,), the graph state,
-updated in place, path (8, L_MAX)).  Variants:
+entries (from OUT_LEN - 480) of every window, the kernel on CUDA tensors
+and the plain torch version (`fusebody_reference`) on CPU tensors, and
+returns what the JAX variant returns: (nn_out (8,), the graph state,
+updated in place, path (8, L_MAX)).  Variants, and what each keeps of the
+staged walk:
 
-  full        the whole body
-  nowrite     every graph-state write dropped (reads + logic)
+  full        staging, then per entry the live gc lookup, the pred and
+              weight rows (16-byte loads, one round trip) and the writes
+  nowrite     every graph-state write dropped (staging, reads + logic)
   noread      the state reads replaced by constants (logic + edge writes)
-  logic       no state traffic at all
-  empty       a counter-only loop
-  scal16      a counter plus one scalar read per step
+  logic       no state traffic at all (synthetic entries)
+  empty       lane 0's counter-only loop
+  scal16      the counter loop plus one read of a staged tile per step
   noveccarry  the counter loop; nn_out gets the step count
 
 `LAUNCHES` counts kernel launches per variant; `variant_bytes` is the
@@ -256,7 +258,8 @@ def _kernel():
 def fusebody_cuda(variant, an, asx, seqs5, gminr, nn, st: GraphState,
                   k0: int):
     """Launch the probe kernel of `variant` on CUDA tensors (see
-    fusebody_reference)."""
+    fusebody_reference), one warp (a CTA) per window.  st.pn and st.pw must
+    be 16-byte aligned (a pred row is read as two 16-byte words)."""
     _check_variant(variant)
     dev = an.device
     if dev.type != "cuda":
@@ -278,6 +281,8 @@ def fusebody_cuda(variant, an, asx, seqs5, gminr, nn, st: GraphState,
         check_tensor(name, t, i32, shape, dev)
     if not 0 <= k0 <= out_len:
         raise ValueError(f"k0 {k0} outside 0..{out_len}")
+    if st.pn.data_ptr() % 16 or st.pw.data_ptr() % 16:
+        raise ValueError("st.pn and st.pw must be 16-byte aligned")
     nn_out = torch.empty((B,), dtype=i32, device=dev)
     path = torch.empty((B, l_max), dtype=i32, device=dev)
     fn = _kernel()
@@ -309,8 +314,9 @@ def fusebody(variant, an, asx, seqs5, gminr, nn, st: GraphState,
 
 
 # int32 reads per entry: an + asx (2), the read's base (1), gminr (1), the
-# column's gchar member (1), the target's pred row (8) and its weight (1)
-ENTRY_READS = {"full": 14, "nowrite": 14, "noread": 4, "logic": 2,
+# column's gchar member (1), the target's pred row (8) and its weight (1);
+# noread and logic need no gminr (their constants stand in for the state)
+ENTRY_READS = {"full": 14, "nowrite": 14, "noread": 3, "logic": 1,
                "scal16": 1, "empty": 0, "noveccarry": 0}
 
 
@@ -362,7 +368,7 @@ def main(argv=None) -> dict:
             v, *a, OUT_LEN - STEPS), dev, 1, queued=False)
         res[v] = {"ms": ms, "plain_ms": p_ms, "max_abs_err": err}
         print(f"{v:10s}: {ms:.4f} ms/call, {ms * 1e3 / STEPS:.4f} us/step "
-              f"(lockstep over {W} windows); plain {p_ms:.4f} ms/call; "
+              f"({W} windows in parallel); plain {p_ms:.4f} ms/call; "
               "kernel == plain", flush=True)
     return res
 

@@ -1,22 +1,29 @@
-"""Row probe: K1's per-row cost, one part at a time (counterpart of
+"""Row probe: K1's per-row cost, one part at a time, each part paid as
+K1's row pass (csrc/poa_row.cuh) pays it (counterpart of
 tools/probe/row_probe.py, kernel csrc/probe_row.cu).
 
 Each variant runs the same loop of NROWS = 512 rows over L1 = 513 columns
 per window and returns the last row hN (B, L1) int32 that the JAX probe's
-variant returns from the same inputs:
+variant returns from the same inputs.  Each adds one part of K1's chain
+row to its parent:
 
-  loop      carried row + 1 per row (one block barrier per row on the card)
+  loop      the carried tile (+ 1 per row, in registers) and one block
+            barrier a row
   store     + the row stored to an H plane in device memory
-  pfx       + the row's prefix max (K1's block max-scan), floored at NEG
-  chmask    + the row's node char, a load per row, added before the scan
-  row       the full chain row (substitution, diag/up, gap chain,
-            direction byte) + store
+  pfx       + the row's prefix max (the in-thread tile scan and K1's
+            one-barrier block scan, its only barrier), floored at NEG
+  chmask    + the row's node char, staged in shared memory once, added
+            before the scan
+  row       the chain row for pred row i-1 (diag from the thread's previous
+            tile and the scan's carry, up, gap chain, direction byte, H to
+            the plane and to a ring in shared memory)
 
-`row_probe` sends CUDA tensors to the kernel (one CTA per window, one
-thread per column) and CPU tensors to the plain version
-(`row_probe_reference`, built on cummax); `LAUNCHES` counts kernel
-launches per variant.  On the card all B windows run in one wave, so one
-call's time over NROWS is the time of one row.
+`row_probe` sends CUDA tensors to the kernel (one CTA per window, K1's
+columns a thread and thread count, `launch_config`, and K1's ring depth,
+`ring_rows`) and CPU tensors to the
+plain version (`row_probe_reference`, built on cummax); `LAUNCHES` counts
+kernel launches per variant.  On the card all B windows run in one wave,
+so one call's time over NROWS is the time of one row.
 
     python -m svscope_tpu_torch.tools.probe.row_probe [variants ...]
         [--device cuda|cpu] [--reps 5]
@@ -30,7 +37,8 @@ import threading
 import numpy as np
 import torch
 
-from ...ops.poa_align import check_tensor
+from ...ops.poa_align import (check_tensor, launch_threads, launch_tiles,
+                               ring_rows)
 from ...utils.cuda_build import load_cuda_lib
 from ...utils.device import resolve_device
 from ..timing import time_call
@@ -98,11 +106,19 @@ def row_probe_reference(chars, seqs, variant: str):
     return h.to(torch.int32)
 
 
+def launch_config(l1: int) -> tuple[int, int]:
+    """(columns a thread, threads) of the kernel's CTA for rows of `l1`
+    columns: K1's for l_max = l1 - 1, so the probe follows K1's layout."""
+    if l1 < 1:
+        raise ValueError(f"l1 {l1} < 1")
+    return launch_tiles(l1 - 1), launch_threads(l1 - 1)
+
+
 def _kernel():
     if "k" not in _fns:
         fn = load_cuda_lib(SOURCE).row_probe_launch
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 5 + [ci] * 5 + [vp]
+        fn.argtypes = [vp] * 5 + [ci] * 7 + [vp]
         fn.restype = ci
         _fns["k"] = fn
     return _fns["k"]
@@ -116,8 +132,7 @@ def row_probe_cuda(chars, seqs, variant: str):
         raise ValueError(f"row_probe_cuda needs CUDA tensors, got {dev}")
     B, nrows = chars.shape
     l1 = seqs.shape[1]
-    if l1 > 1024:
-        raise ValueError(f"l1 {l1} > 1024 (one thread per column)")
+    tiles, threads = launch_config(l1)
     check_tensor("chars", chars, torch.int32, (B, nrows), dev)
     check_tensor("seqs", seqs, torch.int32, (B, l1), dev)
     out = torch.empty((B, l1), dtype=torch.int32, device=dev)
@@ -125,14 +140,14 @@ def row_probe_cuda(chars, seqs, variant: str):
         (B, nrows + 1, l1), dtype=torch.int32, device=dev)
     D = torch.empty((B, nrows, l1), dtype=torch.int8, device=dev) \
         if variant == "row" else None
-    threads = (l1 + 31) // 32 * 32
     fn = _kernel()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(chars.data_ptr(), seqs.data_ptr(),
                 0 if H is None else H.data_ptr(),
                 0 if D is None else D.data_ptr(), out.data_ptr(), B, nrows,
-                l1, threads, VARIANTS.index(variant), stream)
+                l1, tiles, threads, ring_rows(nrows, l1 - 1),
+                VARIANTS.index(variant), stream)
     if rc != 0:
         raise RuntimeError(f"row_probe_launch failed: CUDA error {rc} "
                            f"(variant {variant}, B={B})")

@@ -1,7 +1,7 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (K1 and K1-int16; K3,
 K4, K5 of the fused pk build; K2 of the MisScore path; the row,
 fusion-body and int16 probes) against their plain torch versions, at the
-edges of K1's, K3's, K4's, K2's and the int16 probe's layouts too, and the
+edges of K1's, K3's, K4's, K2's and the three probes' layouts too, and the
 slices' device paths and the measurement tools (K1's clock64 split among
 them), on the card.
 
@@ -410,6 +410,58 @@ def test_fusebody_probe_kernels_match_plain(dev):
                 *sp.tensors()]
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b.cpu()), v
+
+
+@pytest.mark.parametrize("shape", chip_smoke.ROW_PROBE_EDGES)
+def test_row_probe_edges_match_plain(dev, shape):
+    """Every variant == plain at the edges of K1's layout: one window, 300,
+    one row, rows of 1, 33 and 1025 columns (a partial last tile of 3)."""
+    from svscope_tpu_torch.tools.probe import row_probe as rp
+    chars, seqs = chip_smoke.row_probe_edge_inputs(*shape, dev)
+    for v in rp.VARIANTS:
+        got = rp.row_probe_cuda(chars, seqs, v)
+        assert torch.equal(got.cpu(), rp.row_probe_reference(
+            chars, seqs, v).cpu()), v
+
+
+@pytest.fixture(scope="module")
+def fusebody_states():
+    from svscope_tpu_torch.tools.probe import fusebody_probe as fp
+    return fp.build_states()
+
+
+@pytest.mark.parametrize("windows", chip_smoke.FUSEBODY_EDGE_WINDOWS
+                         + (tuple(range(8)),))
+@pytest.mark.parametrize("entries", chip_smoke.FUSEBODY_EDGE_ENTRIES)
+def test_fusebody_probe_edges_match_plain(dev, fusebody_states, entries,
+                                          windows):
+    """Every variant == plain (nn_out, path, the whole state) at the edges
+    of the staged tiles (1, 255, 256, 257 and all entries), on 1, 8 and 9
+    windows."""
+    from svscope_tpu_torch.tools.probe import fusebody_probe as fp
+    *ops, st0 = fp.device_inputs(fusebody_states, dev)
+    ops, st0 = chip_smoke.fusebody_windows(ops, st0, list(windows))
+    k0 = fp.OUT_LEN - entries
+    for v in fp.VARIANTS:
+        sk, sp = st0.clone(), st0.clone()
+        got = [*fp.fusebody_cuda(v, *ops, sk, k0), *sk.tensors()]
+        want = [*fp.fusebody_reference(v, *ops, sp, k0), *sp.tensors()]
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b.cpu()), v
+
+
+def test_fusebody_probe_rejects_bad_launch(dev, fusebody_states):
+    from svscope_tpu_torch.ops.poa_fused_kernel import GraphState
+    from svscope_tpu_torch.tools.probe import fusebody_probe as fp
+    *ops, st = fp.device_inputs(fusebody_states, dev)
+    before = dict(fp.LAUNCHES)
+    t = st.pn.flatten()
+    off = torch.cat([t[:1], t]).narrow(0, 1, t.numel()).view(st.pn.shape)
+    assert off.data_ptr() % 16
+    bad = GraphState(off, *st.tensors()[1:])
+    with pytest.raises(ValueError):
+        fp.fusebody_cuda("full", *ops, bad, 0)
+    assert fp.LAUNCHES == before
 
 
 def test_int16_probe_ops_match_plain(dev):

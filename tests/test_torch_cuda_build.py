@@ -43,7 +43,7 @@ def test_repo_kernels_share_the_dp_header():
         assert cuda_build.source_files(src) == [src, "poa_row.cuh",
                                                 "poa_dp.cuh"]
     assert cuda_build.source_files("probe_row.cu") == \
-        ["probe_row.cu", "poa_dp.cuh"]
+        ["probe_row.cu", "poa_dp.cuh", "poa_row.cuh"]
     assert cuda_build.source_files("poa_pk_fusion.cu") == \
         ["poa_pk_fusion.cu"]
 

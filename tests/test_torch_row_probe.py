@@ -12,6 +12,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+from svscope_tpu_torch.ops import poa_align
 from svscope_tpu_torch.tools.probe import row_probe as trp
 
 torch.set_num_threads(1)
@@ -86,3 +87,22 @@ def test_main_on_cpu_and_bad_input(capsys):
         trp.row_probe(chars, seqs, "nope")
     with pytest.raises(ValueError):
         trp.row_probe_cuda(chars, seqs, "loop")     # CPU tensors
+
+
+@pytest.mark.parametrize("l1", [1, 33, trp.L1, 1025, 4096])
+def test_launch_config_is_k1s(l1):
+    """The kernel's CTA is K1's for l_max = l1 - 1: its columns a thread and
+    thread count, whole warps covering the l1 columns (at 1025: 3 columns
+    a thread, the last thread's tile partial; at 4096, K1's widest row,
+    4 columns on 1024 threads)."""
+    tiles, threads = trp.launch_config(l1)
+    assert (tiles, threads) == (poa_align.launch_tiles(l1 - 1),
+                                poa_align.launch_threads(l1 - 1))
+    assert threads % 32 == 0 and tiles * threads >= l1
+    assert tiles * (threads - 32) < l1                  # no idle warp
+    if l1 == 1025:
+        assert tiles == 3 and l1 % tiles != 0
+    if l1 == 4096:
+        assert (tiles, threads) == (poa_align.MAX_TILES, 1024)
+    with pytest.raises(ValueError):
+        trp.launch_config(0)
