@@ -96,6 +96,22 @@ non-zero before the final line:
      K1 int32, K1-int16 and their plain versions on the tool's per-round
      workload (B=64, N=L=512), the kernels' calls queued ahead of the
      device (CUDA events, tools/timing.py).
+ 15b. the rest of the single-card CLI, each run with the launch counts
+     set to 0 just before it (tests/data/jax_dataprepare_golden.json):
+     dataprepare: the synth pair's `DataPrepare --selectwindows
+     --FullProcess --device cuda` then `adjustVCF` (K1 and K2 launched):
+     every file (CandidateSpan beds, InterALNSVs.vcf, Raw.bed, VCFs,
+     adjusted VCF) equals the JAX golden; dataprepare-fused: the same with
+     `--device-poa fused` (K3 and K4); npz-replay: `--saveData` then
+     `localGraph_npz --device cuda` (K1): Raw.bed == golden == the direct
+     run; viz-inputs: the figure inputs of the pair's somatic window
+     (MSA, columns, cutoff, K, labels; BICs within float32's 1e-5);
+     em-cluster: the per-K em_cluster on the card with its own generator,
+     K and labels == JAX's on the golden windows without re-init;
+     chrom-bench: svscope_tpu_torch.tools.chrom_bench at 2.1 Mb, 80
+     planted SVs and 8 LargeDELs with the default device POA, each
+     stage's wall printed, every output file's hash == the JAX run's,
+     recall 80/80.  Their total is printed.
  19-21. row-probe, fusebody-probe, int16-probe: every variant or op of the
      three probes, kernel == plain at the tool's own shapes (the int16
      ops on (262144, 128) arrays) and at the edges of the row and
@@ -122,7 +138,9 @@ chain-row flags gets them, rebuilt from the pk layout (chain_flags).
 Then one JSON line listing every kernel with its launches on the main path,
 error, times and bound (a probe's row: the sums over its variants, which
 it lists under "variants", with the library call's time where there is
-one; K1's, K3's and K4's rows add their launches per workload, K1's and
+one; K1's, K2's, K3's and K4's rows add their launches per workload and
+new CLI path (launches_dataprepare, launches_chrom, ...), K1's the chrom
+run's stage walls, K1's and
 the pk kernels' the heavy shape as timed, K4's and K5's their single-call
 times, K4's its serial-walk windows per round checked, K2's its time per
 bucket launch), the card
@@ -1267,21 +1285,11 @@ def time_k2(pairs, groups, dev):
 
 
 def k2_main_path(name, fn):
-    """Run fn() with K2's launch count and the host-DP count set to 0 just
-    before; returns (fn's result, K2 launches).  Fails unless K2 launched
-    and no pair went to the host DP."""
-    import torch
-    from svscope_tpu_torch.ops import nw_batch, nw_kernel
-    nw_kernel.reset_launches()
-    nw_batch.reset_counts()
-    out = fn()
-    torch.cuda.synchronize()
-    launches, host_dp = nw_kernel.LAUNCHES, nw_batch.COUNTS["host_dp_pairs"]
-    if launches <= 0:
-        raise RuntimeError(f"{name}: the main path launched no K2")
-    if host_dp:
-        raise RuntimeError(f"{name}: {host_dp} pairs went to the host DP")
-    return out, launches
+    """Run fn() with the launch counts and the host-DP count set to 0 just
+    before (path_launches); returns (fn's result, K2 launches).  Fails
+    unless K2 launched and no pair went to the host DP."""
+    out, launches = path_launches(name, fn, ("K2",))
+    return out, launches["K2"]
 
 
 def check_misscore_pipe(records, dev):
@@ -1363,6 +1371,143 @@ def check_aln_cli(dev):
     phase("cli-callsomaticsv", t0, f"{sorted(out)} == golden, K2 launches "
           f"{launches}")
     return total
+
+
+def path_launches(name, fn, need):
+    """Run fn() with the launch counts of K1, K2, K3/K4/K5 and the
+    host-DP and fused-fallback counts set to 0 just before; returns (fn's
+    result, {kernel: launches}).  Fails unless every kernel of `need`
+    launched, a pair went to the host DP or a window fell back to the host
+    POA engine."""
+    import torch
+    from svscope_tpu_torch.ops import nw_batch, nw_kernel, poa_align
+    from svscope_tpu_torch.ops import poa_fused as tpf
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    poa_align.reset_launches()
+    nw_kernel.reset_launches()
+    tpk.reset_launches()
+    nw_batch.reset_counts()
+    tpf.reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {"K1": poa_align.LAUNCHES, "K2": nw_kernel.LAUNCHES,
+                **tpk.LAUNCHES}
+    missing = [k for k in need if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"{name}: the main path launched no {missing} "
+                           f"(launches {launches})")
+    if nw_batch.COUNTS["host_dp_pairs"] or tpf.COUNTS["fallbacks"]:
+        raise RuntimeError(f"{name}: host DP pairs "
+                           f"{nw_batch.COUNTS['host_dp_pairs']}, fused "
+                           f"fallbacks {tpf.COUNTS['fallbacks']}")
+    return out, launches
+
+
+def check_dataprepare(dev):
+    """Phases dataprepare, dataprepare-fused and npz-replay: the synth
+    pair's `DataPrepare --selectwindows --FullProcess --device cuda` then
+    `adjustVCF` (default device POA: K1, and K2 for MisScore; then with
+    `--device-poa fused`: K3 and K4), and `--saveData` then
+    `localGraph_npz --device cuda` (K1), against the JAX golden
+    (tests/data/jax_dataprepare_golden.json).  Returns the launches of
+    each run."""
+    import dataprepare_golden as dg
+    g = dg.load_golden()
+    want = g["synth_pair"]["outputs"]
+    runs = {}
+    for name, extra, need in (("dataprepare", (), ("K1", "K2")),
+                              ("dataprepare-fused", ("--device-poa", "fused"),
+                               ("K3", "K4", "K2"))):
+        t0 = time.perf_counter()
+        out, launches = path_launches(
+            name, lambda: dg.port_dataprepare(dev.type, extra), need)
+        bad = sorted(k for k in set(out) | set(want)
+                     if out.get(k) != want.get(k))
+        if bad:
+            raise RuntimeError(f"{name}: {bad} differ from the golden")
+        runs[name] = launches
+        phase(name, t0, f"{len(out)} files == golden (CandidateSpan beds, "
+              f"InterALNSVs.vcf, Raw.bed, VCFs, adjusted VCF); launches "
+              f"{launches}")
+    t0 = time.perf_counter()
+    raw, launches = path_launches("npz-replay",
+                                  lambda: dg.port_npz_replay(dev.type),
+                                  ("K1",))
+    if raw != g["npz_replay"]["raw_bed"] or raw != want[dg.RAW_BED]:
+        raise RuntimeError("npz-replay: Raw.bed differs from the golden")
+    runs["npz-replay"] = launches
+    phase("npz-replay", t0, f"Raw.bed == golden == the direct run; "
+          f"launches {launches}")
+    return runs
+
+
+def check_viz_and_em(dev):
+    """Phases viz-inputs and em-cluster: the figure inputs of the synth
+    pair's somatic window on the card (K and labels equal the golden, BICs
+    within float32's 1e-5 but for runs that restarted on one side only,
+    dataprepare_golden.bics_match), and the per-K em_cluster on the card
+    with its own generator on the golden's windows in which no re-init
+    fires (K and labels equal JAX's)."""
+    import numpy as np
+    import dataprepare_golden as dg
+    from svscope_tpu_torch.models.mixture import em_cluster
+    g = dg.load_golden()
+    t0 = time.perf_counter()
+    got = dg.port_figure_inputs(dev.type)
+    want = {k: v for k, v in g["viz"].items()
+            if k not in ("record", "reinit_runs")}
+    bad = [k for k in want if k != "bics" and got[k] != want[k]]
+    if bad:
+        raise RuntimeError(f"viz-inputs: {bad} differ from the golden")
+    flips = dg.bics_match(want["bics"], got["bics"], want["K"], 1e-5)
+    phase("viz-inputs", t0, f"MSA {got['enc_shape']}, {len(got['sel'])} "
+          f"selected columns, K={got['K']} and labels == golden, BICs "
+          f"within 1e-5 ({flips} runs restarted on one side only)")
+    t0 = time.perf_counter()
+    n = 0
+    for i, e in enumerate(g["em_cluster"]["windows"]):
+        if any(e["reinit_runs"]):
+            continue
+        K, _x, labels, *_rest = em_cluster(dg.decode_window(e["x"]),
+                                           device=dev)
+        if K != e["K"] or list(np.asarray(labels)) != e["labels"]:
+            raise RuntimeError(f"em-cluster: window {i} K {K} labels "
+                               f"{list(labels)} != golden {e['K']} "
+                               f"{e['labels']}")
+        n += 1
+    if n == 0:
+        raise RuntimeError("em-cluster: no golden window without re-init")
+    phase("em-cluster", t0, f"{n} windows without re-init: K and labels == "
+          f"golden (float32, the port's own generator)")
+
+
+def run_chrom_bench(dev):
+    """Phase chrom-bench: svscope_tpu_torch.tools.chrom_bench at 2.1 Mb and
+    80 planted SVs (plus 8 LargeDELs) on the card with the default device
+    POA: every output file's hash equals the JAX run's, recall 80/80, K1
+    and K2 launched.  Returns its result and launches."""
+    import dataprepare_golden as dg
+    from svscope_tpu_torch.tools import chrom_bench
+    g = dg.load_golden()["chrom"]
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        res, launches = path_launches("chrom-bench", lambda: chrom_bench.run(
+            g["mb"], g["n_sv"], device=dev, savedir=d,
+            log=lambda line: print("  " + line, flush=True)), ("K1", "K2"))
+    bad = sorted(k for k in set(res["hashes"]) | set(g["hashes"])
+                 if res["hashes"].get(k) != g["hashes"].get(k))
+    if bad:
+        raise RuntimeError(f"chrom-bench: {bad} differ from the JAX run")
+    if res["recall"] != g["recall"] or res["recall"] != [g["n_sv"]] * 2:
+        raise RuntimeError(f"chrom-bench: recall {res['recall']}")
+    phase("chrom-bench", t0, f"{g['mb']} Mb, {res['windows']} candidate "
+          f"windows, {res['somatic_rows']} EMOutput rows, LargeDEL "
+          f"{res['large_del']}, recall {res['recall'][0]}/"
+          f"{res['recall'][1]}, {len(res['hashes'])} files == JAX; "
+          "stage walls " + ", ".join(f"{k} {v:.3f} s"
+                                     for k, v in res["stages"].items())
+          + f"; launches {launches}")
+    return res, launches
 
 
 def k1_int16_outputs(args, L):
@@ -1899,6 +2044,19 @@ def main(argv=None):
                                                  dev)
     k2_launches += check_aln_cli(dev)
 
+    # the rest of the single-card CLI: DataPrepare, its npz replay, the
+    # figure's inputs, the per-K EM and the chromosome run
+    t_cli = time.perf_counter()
+    dp_runs = check_dataprepare(dev)
+    check_viz_and_em(dev)
+    chrom, chrom_launches = run_chrom_bench(dev)
+    new_paths = {**dp_runs, "chrom": chrom_launches}
+    print(f"[cli-slice-total] {time.perf_counter() - t_cli:.3f} s "
+          "(dataprepare, dataprepare-fused, npz-replay, viz-inputs, "
+          "em-cluster, chrom-bench)", flush=True)
+    launches += sum(r["K1"] for r in new_paths.values())
+    k2_launches += sum(r["K2"] for r in new_paths.values())
+
     k16_err = check_k1_int16(dev)
     k16_launches, k16_ms, k16_plain_ms, k16_bound = run_attached_bench()
     probes = {"row": check_row_probe(dev),
@@ -1928,6 +2086,10 @@ def main(argv=None):
     # the main path's two workloads, and K1 at the heavy shape
     k1["launches_bench256"] = bench_launches
     k1["launches_heavy32x400"] = heavy_launches
+    for path, r in new_paths.items():
+        if path != "dataprepare-fused":
+            k1[f"launches_{path.replace('-', '_')}"] = r["K1"]
+    k1["chrom_stage_s"] = chrom["stages"]
     k1["heavy_shape"] = {"B": 32, "N": 1024, "L": 512,
                          "ms": k1_heavy["ms"],
                          "plain_ms": k1_heavy["plain_ms"],
@@ -1941,9 +2103,12 @@ def main(argv=None):
                     pk_ms[k][0], pk_ms[k][1], pk_bounds[k])
         if k in ("K3", "K4"):
             # the main path: both fused workloads (lockstep, the default)
-            entry["launches"] += heavy_pk[k]
+            # and DataPrepare with --device-poa fused
+            fused_dp = new_paths["dataprepare-fused"][k]
+            entry["launches"] += heavy_pk[k] + fused_dp
             entry["launches_bench256"] = pk_launches[k]
             entry["launches_heavy32x400"] = heavy_pk[k]
+            entry["launches_dataprepare_fused"] = fused_dp
         # each pk kernel at the heavy capture, as timed
         entry["heavy_shape"] = {**heavy_shape, "round": PK_HEAVY_ROUND + 1,
                                 "ms": pk_ms[k + " heavy"][0],
@@ -1965,6 +2130,8 @@ def main(argv=None):
     # misscore4096 and of the main path (misscore-pipe)
     k2["misscore4096_buckets"] = k2_buckets
     k2["main_path_launch"] = k2_launch
+    for path in ("dataprepare", "dataprepare-fused", "chrom"):
+        k2[f"launches_{path.replace('-', '_')}"] = new_paths[path]["K2"]
     kernels.append(k2)
     for k, (name, src, replaces) in PROBES.items():
         p = probes[k]

@@ -1,19 +1,26 @@
 """Command-line interface of the PyTorch/CUDA port (counterpart of
 svscope_tpu/cli.py).
 
-Ported subcommands: `localGraph`, `AlnFeature`, `callsomaticSV` (localGraph
-then AlnFeature) and `adjustVCF`, with the JAX CLI's flags plus
-`--device {cuda,cpu}` (default cuda; asking for cuda without it raises).
+Subcommands, with the JAX CLI's flags plus `--device {cuda,cpu}` (default
+cuda; asking for cuda without it raises):
+  * `DataPrepare`: candidate-window selection from the two BAMs (native
+    scan with breakpoints, select/windows, InterALNSVs.vcf) with
+    `--selectwindows`; then `--saveData` (window payloads to npz) or
+    `--FullProcess` (localGraph then AlnFeature; `-c` drops the selection
+    intermediates).  Without `--selectwindows` it does nothing, as in JAX.
+  * `localGraph`, `localGraph_npz` (replays saved payloads 256 windows at
+    a time, `-C` resumes), `AlnFeature`, `callsomaticSV` (localGraph then
+    AlnFeature), `adjustVCF`, and `viz` (the per-window figure, its EM on
+    `--device`).
 On cuda, AlnFeature's MisScore runs through K2 (csrc/nw_stats.cu) and the
 forest on the card; on cpu, MisScore takes the host DP, as the JAX package
-on its CPU backend.  `DataPrepare`, `localGraph_npz` and `viz` are not
-ported yet.  `--device-poa`: omitted, bare, `pallas` or `xla` select the
-per-round device aligner (the CUDA kernel on cuda, its plain torch version
-on cpu) — except that an omitted flag on cpu keeps the host C++ engine, as
-the JAX engine does on its CPU backend; `host` selects the C++ engine;
-`fused` keeps the whole MSA build on the device (kernels K3 and K4/K5 on
-cuda, their plain torch versions on cpu).  `--oversize-sharded` is not
-ported yet and raises.
+on its CPU backend.  `--device-poa`: omitted, bare, `pallas` or `xla` select
+the per-round device aligner (the CUDA kernel on cuda, its plain torch
+version on cpu) — except that an omitted flag on cpu keeps the host C++
+engine, as the JAX engine does on its CPU backend; `host` selects the C++
+engine; `fused` keeps the whole MSA build on the device (kernels K3 and
+K4/K5 on cuda, their plain torch versions on cpu).  `--oversize-sharded` is
+not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -65,6 +72,28 @@ def _load_tables(args):
     return t, n
 
 
+def _load_tables_with_bp(args):
+    """Tables + native breakpoint frames in one C++ pass (selection path).
+
+    A failing native scan raises: the Python scan would give the same
+    tables and so hide it."""
+    import pandas as pd
+    from .io.bam import AlignmentTable
+    from .native.bam import scan_with_breakpoints
+    ts, tb, ns, nb = [], [], [], []
+    for p in args.Tumorbam.split(","):
+        t, b = scan_with_breakpoints(p)
+        ts.append(t)
+        tb.append(b)
+    for p in args.Normalbam.split(","):
+        t, b = scan_with_breakpoints(p)
+        ns.append(t)
+        nb.append(b)
+    return (AlignmentTable.concat(ts), AlignmentTable.concat(ns),
+            pd.concat(tb, ignore_index=True),
+            pd.concat(nb, ignore_index=True))
+
+
 def _genome_windows(args, fai):
     from .engine.features import make_genome_windows
     if getattr(args, "genomeWindow", None):
@@ -85,6 +114,71 @@ def _cleanup_dat(savedir):
         os.remove(f)
         n += 1
     log.info("cleanupDat: removed %d intermediate files", n)
+
+
+def cmd_data_prepare(args):
+    from .select.interaln import write_interaln_vcf
+    from .select.windows import find_candidate_sv_windows
+    from .utils.device import resolve_device
+    resolve_device(args.device)
+    fai = args.Reference + ".fai"
+    os.makedirs(args.savedir, exist_ok=True)
+    if args.selectwindows:
+        t_table, n_table, t_bp, n_bp = _load_tables_with_bp(args)
+        paths = find_candidate_sv_windows(t_table, n_table, fai,
+                                          args.tandemRepeatFile, args.savedir,
+                                          t_bp=t_bp, n_bp=n_bp)
+        write_interaln_vcf(args.savedir, fai,
+                           os.path.basename(args.Tumorbam.split(",")[0]
+                                            ).split(".bam")[0], paths)
+        args.windowBed = paths["somatic_bed"]
+        if args.saveData:
+            from .engine.npz import save_window_data
+            records = [l for l in open(args.windowBed).read().splitlines()
+                       if l.strip()]
+            save_window_data(records, args.Reference,
+                             args.Tumorbam.split(","),
+                             args.Normalbam.split(","),
+                             args.TSampleID.split(","),
+                             args.NSampleID.split(","), args.savedir,
+                             offset=args.offset, mapq=args.mapQ)
+        elif args.FullProcess:
+            args.rawBedFile = cmd_local_graph(args)
+            cmd_aln_feature(args)
+            if args.cleanupDat:
+                _cleanup_dat(args.savedir)
+    log.info("DataPrepare: all processes finished")
+
+
+def cmd_local_graph_npz(args):
+    from .engine.localgraph import (process_window_batch, raw_bed_name,
+                                    resolve_device_poa)
+    from .engine.npz import load_window_data
+    from .utils.device import resolve_device
+    dev = resolve_device(args.device)
+    device_poa = resolve_device_poa(_device_poa_arg(args), dev)
+    t_ids = args.TSampleID.split(",")
+    n_ids = args.NSampleID.split(",")
+    out_path = os.path.join(args.savedir, raw_bed_name(t_ids, n_ids))
+    done = set()
+    rows = []
+    if args.Continue and os.path.exists(out_path):
+        for line in open(out_path):
+            if line.strip():
+                rows.append(line.rstrip("\n"))
+                done.add(":".join(line.split("\t")[0:3]))
+    wins = [w for w in load_window_data(args.savedir)
+            if ":".join(w.record.strip().split("\t")[0:3]) not in done]
+    for off in range(0, len(wins), 256):
+        for rec in process_window_batch(wins[off:off + 256],
+                                        em_dtype=args.device_dtype,
+                                        device_poa=device_poa, device=dev):
+            rows.append("\t".join(str(x) for x in rec))
+    rows.sort(key=lambda l: (l.split("\t")[0], int(l.split("\t")[1])))
+    with open(out_path, "w") as f:
+        f.write("\n".join(rows) + ("\n" if rows else ""))
+    log.info("localGraph_npz: %d records -> %s", len(rows), out_path)
+    return out_path
 
 
 def cmd_aln_feature(args):
@@ -117,6 +211,38 @@ def cmd_call_somatic_sv(args):
     return merged
 
 
+def cmd_viz(args):
+    from .utils.device import resolve_device
+    from .viz.scopeviz import draw_pipe
+    dev = resolve_device(args.device)
+    common = (args.Reference, args.Tumorbam.split(","),
+              args.Normalbam.split(","), args.TSampleID.split(","),
+              args.NSampleID.split(","), args.savedir)
+    kw = dict(offset=args.offset, mapq=args.mapQ, graph=not args.no_graph,
+              device=dev)
+    w = args.window
+    if os.path.exists(w):  # a window bed: render every row (ScopeVIZ.main)
+        outs = []
+        for line in open(w):
+            if not line.strip() or line.startswith("chrom\t"):
+                continue
+            try:
+                outs.append(draw_pipe(line, *common, **kw))
+            except ValueError as exc:  # no spanning reads; device errors raise
+                log.warning("viz: skipping %r (%s)", line.strip(), exc)
+        log.info("viz: %d figures", len(outs))
+        return outs
+    if ":" in w:
+        chrom, span = w.split(":")
+        start, end = span.split("-")
+        record = f"{chrom}\t{start}\t{end}"
+    else:
+        record = w
+    out = draw_pipe(record, *common, **kw)
+    log.info("viz: %s", out)
+    return out
+
+
 def cmd_adjust_vcf(args):
     from .out.adjust import adjust_vcf
     out = adjust_vcf(args.savedir)
@@ -124,9 +250,13 @@ def cmd_adjust_vcf(args):
     return out
 
 
-def _common_bam_args(p, window_bed=True):
-    if window_bed:
-        p.add_argument("-w", "--windowBed", required=True)
+def _device_args(p):
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="where the kernels, the EM and the forest run "
+                        "(default cuda; raises when CUDA is absent)")
+
+
+def _device_poa_flag(p):
     p.add_argument("--device-poa", nargs="?", const="pallas", default=None,
                    choices=("fused", "xla", "pallas", "host"),
                    help="POA alignment backend: 'pallas'/'xla' (or bare) = "
@@ -135,6 +265,12 @@ def _common_bam_args(p, window_bed=True):
                         "engine, 'fused' = the whole MSA build on the device "
                         "(the pk kernels on --device cuda).  Omitted = the "
                         "device aligner on cuda, host C++ on cpu")
+
+
+def _common_bam_args(p, window_bed=True):
+    if window_bed:
+        p.add_argument("-w", "--windowBed", required=True)
+    _device_poa_flag(p)
     p.add_argument("--oversize-sharded", action="store_true",
                    help="not ported yet (raises)")
     p.add_argument("-T", "--Tumorbam", required=True)
@@ -148,9 +284,7 @@ def _common_bam_args(p, window_bed=True):
     p.add_argument("-q", "--mapQ", type=int, default=5)
     p.add_argument("--device-dtype", default="float32",
                    choices=["float32", "float64"])
-    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="where the kernels, the EM and the forest run "
-                        "(default cuda; raises when CUDA is absent)")
+    _device_args(p)
 
 
 def main(argv=None):
@@ -161,10 +295,35 @@ def main(argv=None):
         description="Somatic SV caller, PyTorch/CUDA port (local "
                     "graph-genome optimization)")
     sub = parser.add_subparsers(dest="command")
+    p = sub.add_parser("DataPrepare")
+    p.add_argument("-D", "--tandemRepeatFile", required=True)
+    _common_bam_args(p, window_bed=False)
+    p.add_argument("--selectwindows", action="store_true", default=False)
+    p.add_argument("--saveData", action="store_true", default=False)
+    p.add_argument("--FullProcess", action="store_true", default=False)
+    p.add_argument("-C", "--Continue", action="store_true", default=False)
+    p.add_argument("-c", "--cleanupDat", action="store_true", default=False)
+    p.add_argument("-W", "--genomeWindow", required=False)
+    p.set_defaults(func=cmd_data_prepare)
+
     p = sub.add_parser("localGraph")
     _common_bam_args(p)
     p.add_argument("-C", "--Continue", action="store_true", default=False)
     p.set_defaults(func=cmd_local_graph)
+
+    p = sub.add_parser("localGraph_npz")
+    p.add_argument("-t", "--TSampleID", required=True)
+    p.add_argument("-n", "--NSampleID", required=True)
+    p.add_argument("-s", "--savedir", required=True)
+    p.add_argument("-p", "--thread", default="8")
+    p.add_argument("-o", "--offset", type=int, default=50)
+    p.add_argument("-q", "--mapQ", type=int, default=5)
+    p.add_argument("-C", "--Continue", action="store_true", default=False)
+    p.add_argument("--device-dtype", default="float32",
+                   choices=["float32", "float64"])
+    _device_poa_flag(p)
+    _device_args(p)
+    p.set_defaults(func=cmd_local_graph_npz)
 
     p = sub.add_parser("AlnFeature")
     p.add_argument("-B", "--rawBedFile", required=True)
@@ -183,6 +342,14 @@ def main(argv=None):
     p.add_argument("-s", "--savedir", required=True)
     p.set_defaults(func=cmd_adjust_vcf)
 
+    p = sub.add_parser("viz", help="per-window diagnostic figure "
+                       "(ScopeVIZ equivalent)")
+    p.add_argument("-w", "--window", required=True,
+                   help="window as chrom:start-end or chrom<TAB>start<TAB>end")
+    _common_bam_args(p, window_bed=False)
+    p.add_argument("--no-graph", action="store_true", default=False)
+    p.set_defaults(func=cmd_viz)
+
     args = parser.parse_args(argv)
     if not hasattr(args, "func"):
         parser.print_help()
@@ -190,7 +357,8 @@ def main(argv=None):
     for attr, what in (("Tumorbam", "tumor BAM"), ("Normalbam", "normal BAM"),
                        ("Reference", "reference FASTA"),
                        ("windowBed", "window bed"),
-                       ("rawBedFile", "Raw.bed")):
+                       ("rawBedFile", "Raw.bed"),
+                       ("tandemRepeatFile", "RepeatMasker bed")):
         val = getattr(args, attr, None)
         if not val:
             continue

@@ -14,6 +14,7 @@ import numpy as np
 from ..models.mixture import em_cluster_batch
 from ..native.poa import poa_native
 from ..utils import seq as sq
+from ..utils.device import resolve_device
 from .datamaker import WindowData
 
 
@@ -69,9 +70,10 @@ def msa_feature_selection(sequences: list[str], flank_5: str, flank_3: str,
 
 def decision(win: WindowData, t_label: str = "tumor", readcutoff: int = 3,
              hcutoff: int = 3, scutoff: float = 0.05, em_dtype=None,
-             em_kwargs: dict | None = None, device="cpu") -> list:
+             em_kwargs: dict | None = None, device="cuda") -> list:
     """Decision equivalent (src/DecisionMaker.py:110-191); the EM runs on
-    `device`."""
+    `device` (default cuda; raises when CUDA is absent)."""
+    device = resolve_device(device)
     parts = win.record.strip().split("\t")
     chrom, start, end = parts[0], parts[1], parts[2]
     record = [chrom, start, end, "-", "-", 0, "-", "-", 0, win.flag]

@@ -1,12 +1,15 @@
 """Categorical mixture EM with BIC model selection — the phasing core of the
 per-window engine (counterpart of svscope_tpu/models/mixture.py).
 
-Only the path the localGraph engine runs is ported: the 45-slot folded EM
-(all nine K-runs of a window share one segmented slot axis, so each step is
-one pair of batched products over (windows, reads, nf*5) x (nf*5, 45)), its
-labels-only variant, the bucketed batch dispatch with the reference's
-NaN-BIC retry policy, and the result selection.  The window axis is a
-leading batch dimension where the JAX package vmaps.
+The localGraph engine's path: the 45-slot folded EM (all nine K-runs of a
+window share one segmented slot axis, so each step is one pair of batched
+products over (windows, reads, nf*5) x (nf*5, 45)), its labels-only
+variant, the bucketed batch dispatch with the reference's NaN-BIC retry
+policy, and the result selection.  The window axis is a leading batch
+dimension where the JAX package vmaps.  Beside it, the per-K single-window
+path (`em_cluster`, which the figures of viz/scopeviz.py's callers and
+the reference's EMCluster API use): the nine K-runs as a leading run axis
+of batched products where the JAX package vmaps `em_run` over K.
 
 Random state.  On a degenerate mixing weight the M-step re-initialises a
 K-run from Dirichlet(1) draws.  The JAX package draws them per step from
@@ -17,13 +20,17 @@ every window of the chunk.  By default they come from a torch.Generator
 seeded from (seed, attempt); the `uniforms=` callable replaces them (the
 tests hand in JAX's own draws, which makes the BICs comparable).
 K and labels do not depend on the stream on the engine's workloads.
+The per-K path draws Gamma(1) variates (JAX: `jax.random.gamma(key, ones)`
+per run and step); here they are an explicit (MAX_K, nsteps + 1, MAX_K,
+nf_pad, 5) input per attempt, -log(U) from a torch.Generator seeded from
+(seed, attempt) by default, and the `gammas=` callable replaces them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..utils.device import resolve_dtype
+from ..utils.device import resolve_device, resolve_dtype
 
 ALPHA = 5          # alphabet size {A,T,C,G,-}
 MAX_K = 9          # reference max cluster count (src/ReadsCluster.py:221)
@@ -103,6 +110,12 @@ def ward_cut_many(sims: list[np.ndarray], kmax: int) -> list[np.ndarray]:
 # Random draws
 # ---------------------------------------------------------------------------
 
+def _generator(seed: int, attempt: int, device) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed((int(seed) << 8) + int(attempt))
+    return gen
+
+
 def torch_uniforms(seed: int, attempt: int, nf_pad: int, nsteps: int,
                    dtype: torch.dtype, device) -> torch.Tensor:
     """Default draws: (nsteps + 1, 45, nf_pad, 5) uniforms in
@@ -110,12 +123,115 @@ def torch_uniforms(seed: int, attempt: int, nf_pad: int, nsteps: int,
     (seed, attempt) — the counterpart of the JAX package's per-step
     `jax.random.uniform(..., minval=1e-12)` under split keys."""
     device = torch.device(device)
-    gen = torch.Generator(device=device)
-    gen.manual_seed((int(seed) << 8) + int(attempt))
-    u = torch.rand((nsteps + 1, R_TOTAL, nf_pad, ALPHA), generator=gen,
-                   dtype=dtype, device=device)
+    u = torch.rand((nsteps + 1, R_TOTAL, nf_pad, ALPHA),
+                   generator=_generator(seed, attempt, device), dtype=dtype,
+                   device=device)
     return torch.clamp(u * (1.0 - UNIFORM_MIN) + UNIFORM_MIN,
                        min=UNIFORM_MIN)
+
+
+def torch_gammas(seed: int, attempt: int, nf_pad: int, nsteps: int,
+                 dtype: torch.dtype, device) -> torch.Tensor:
+    """Default draws of the per-K path: (MAX_K, nsteps + 1, MAX_K, nf_pad,
+    5) Gamma(1) variates, -log(U) of uniforms in [UNIFORM_MIN, 1) from a
+    torch.Generator on `device` seeded from (seed, attempt) — the
+    counterpart of `jax.random.gamma(keys[s], ones)` under the keys that
+    em_run splits per K-run and step."""
+    device = torch.device(device)
+    u = torch.rand((MAX_K, nsteps + 1, MAX_K, nf_pad, ALPHA),
+                   generator=_generator(seed, attempt, device), dtype=dtype,
+                   device=device)
+    return -torch.log(torch.clamp(u, min=UNIFORM_MIN))
+
+
+# ---------------------------------------------------------------------------
+# Per-K EM (one window, the nine K-runs batched over a leading run axis)
+# ---------------------------------------------------------------------------
+
+def _m_step(gamma, x_flat, read_mask, n_true, kmask, draws):
+    """pi/theta update with degenerate-pi Dirichlet re-init, per run
+    (svscope_tpu/models/mixture.py::_m_step under vmap over K).
+
+    gamma (R, N, K); x_flat (N, nf*5); kmask (R, K) bool; draws (R, K, nf,
+    5) Gamma(1) variates.  Returns pi (R, K), theta (R, K, nf*5)."""
+    gamma = gamma * read_mask[None, :, None]
+    # reads summed in order, as XLA's reduction does (see _em_folded_batch)
+    denom = gamma.cumsum(dim=1)[:, -1]                            # (R, K)
+    pi = denom / n_true
+    counts = torch.matmul(gamma.transpose(1, 2), x_flat)          # (R, K, F)
+    theta = counts / torch.where(denom == 0, 1.0, denom)[..., None]
+    bad = ((torch.where(kmask, pi, 1.0) * n_true < 1).any(dim=1)
+           | torch.isnan(pi).any(dim=1))                          # (R,)
+    dirich = (draws / draws.sum(-1, keepdim=True)).reshape(theta.shape)
+    k_act = kmask.sum(dim=1).clamp(min=1).to(torch.float64)
+    pi = torch.where(bad[:, None], (1.0 / k_act).to(pi.dtype)[:, None], pi)
+    theta = torch.where(bad[:, None, None], dirich, theta)
+    return pi, theta
+
+
+def _e_step(pi, theta, x_flat, kmask):
+    """(gamma (R, N, K), M (R, N, K)) with the reference's reciprocal-sum
+    gamma_I = 1 / sum_j exp(clip(M_j - M_I, -700, 700))."""
+    logt = torch.log(torch.clamp(theta, EPS, 1 - EPS))            # (R, K, F)
+    M = torch.matmul(x_flat, logt.transpose(1, 2))                # (R, N, K)
+    M = M + torch.log(torch.clamp(pi, EPS, 1 - EPS))[:, None, :]
+    M = torch.where(kmask[:, None, :], M, NEG_BIG)
+    diff = torch.clamp(M[:, :, :, None] - M[:, :, None, :], -700.0, 700.0)
+    gamma = 1.0 / torch.exp(diff).sum(dim=2)                      # [r, n, I]
+    gamma = torch.where(kmask[:, None, :], gamma, 0.0)
+    return gamma, M
+
+
+def _loglik(pi, theta, gamma, x_flat, read_mask):
+    """Expected complete-data log-lik per read, (R, N)
+    (src/ReadsCluster.py:104-122)."""
+    logt = torch.log(torch.clamp(theta, EPS, 1 - EPS))
+    per_k = torch.matmul(x_flat, logt.transpose(1, 2)) \
+        + torch.log(torch.clamp(pi, EPS, 1 - EPS))[:, None, :]
+    return (per_k * gamma).sum(dim=2) * read_mask[None, :]
+
+
+def em_run(x_flat, read_mask, gamma0, kmask, n_true, draws,
+           nsteps: int = NSTEP):
+    """EM runs of one window, one per K-run: init M/E then nsteps x (M, E)
+    (svscope_tpu/models/mixture.py::em_run, batched over the run axis).
+
+    x_flat (N, nf*5) one-hot (pad rows/cols zero); gamma0 (R, N, K) Ward
+    hard labels; kmask (R, K) active cluster slots; draws (R, nsteps + 1,
+    K, nf, 5).  Returns (pi, theta, gamma, lik_per_read) of the last step."""
+    pi, theta = _m_step(gamma0, x_flat, read_mask, n_true, kmask,
+                        draws[:, 0])
+    gamma, _ = _e_step(pi, theta, x_flat, kmask)
+    lik = None
+    for s in range(1, nsteps + 1):
+        pi, theta = _m_step(gamma, x_flat, read_mask, n_true, kmask,
+                            draws[:, s])
+        gamma, _ = _e_step(pi, theta, x_flat, kmask)
+        lik = _loglik(pi, theta, gamma * read_mask[None, :, None], x_flat,
+                      read_mask)
+    return pi, theta, gamma, lik
+
+
+def _bic(lik_sum, n_true, nf_true, k, zero_param_num):
+    n_theta = (k - 1) + k * nf_true * (ALPHA - 1) - zero_param_num
+    return 2.0 * lik_sum - n_theta * torch.log(n_true)
+
+
+def _em_all_k(x_oh, read_mask, gamma0_all, kmask_all, n_true, nf_true,
+              zero_param_num, draws, nsteps: int = NSTEP):
+    """Every K-run of one window (svscope_tpu mixture._em_all_k_core).
+
+    x_oh (N, nf, 5); gamma0_all (MAX_K, N, MAX_K); kmask_all (MAX_K, MAX_K)
+    bool; draws (MAX_K, nsteps + 1, MAX_K, nf, 5).
+    Returns (bics (MAX_K,), gammas (MAX_K, N, MAX_K), pis (MAX_K, MAX_K),
+    thetas (MAX_K, MAX_K, nf, 5))."""
+    n, nf = x_oh.shape[:2]
+    x_flat = x_oh.reshape(n, nf * ALPHA)
+    pis, thetas, gammas, liks = em_run(x_flat, read_mask, gamma0_all,
+                                       kmask_all, n_true, draws, nsteps)
+    ks = kmask_all.sum(dim=1).to(x_oh.dtype)
+    bics = _bic(liks.sum(dim=1), n_true, nf_true, ks, zero_param_num)
+    return bics, gammas, pis, thetas.reshape(MAX_K, MAX_K, nf, ALPHA)
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +439,7 @@ def _raw_em_dispatch(feats: list[np.ndarray], max_c: int, seed: int,
 def em_cluster_batch_dispatch(feats: list[np.ndarray], max_c: int = MAX_K,
                               seed: int = 2023, dtype=None,
                               nsteps: int = NSTEP, labels_only: bool = False,
-                              device="cpu", uniforms=None):
+                              device="cuda", uniforms=None):
     """Async half of em_cluster_batch: host prep + device dispatch for every
     shape bucket, returning a fetch() closure that waits for the results,
     applies the reference's NaN-BIC retry policy (up to MAX_EM_ATTEMPTS
@@ -334,7 +450,7 @@ def em_cluster_batch_dispatch(feats: list[np.ndarray], max_c: int = MAX_K,
     (nsteps + 1, 45, nf_pad, 5) tensor of the M-step's random draws;
     default `torch_uniforms`."""
     dtype = resolve_dtype(dtype)
-    device = torch.device(device)
+    device = resolve_device(device)
     uniforms = uniforms or torch_uniforms
     raw_fetch = _raw_em_dispatch(feats, max_c, seed, 0, dtype, nsteps,
                                  labels_only, device, uniforms)
@@ -385,9 +501,10 @@ def _select_k(x, bics, n_k):
     return sel, k_sel, bics
 
 
-def _select_result(x, bics, gammas, n_k):
-    """Full-gamma selection (svscope_tpu mixture._select_result with no
-    pi/theta): [K, x, labels, theta, gamma, pi, bics]."""
+def _select_result(x, bics, gammas, n_k, pis=None, thetas=None):
+    """Full-gamma selection (svscope_tpu mixture._select_result):
+    [K, x, labels, theta, gamma, pi, bics]; theta and pi are None when
+    pis/thetas are (the folded path computes neither)."""
     n = x.shape[0]
     sel, k_sel, bics = _select_k(x, bics, n_k)
     if sel is None:
@@ -396,8 +513,11 @@ def _select_result(x, bics, gammas, n_k):
         return [1, x, np.zeros(n, np.int64), None,
                 np.ones((n, 1), np.float64), None, bics[:n_k]]
     gamma = np.array(gammas[sel], np.float64)[:n, :k_sel]
+    theta = (np.array(thetas[sel], np.float64)[:k_sel]
+             if thetas is not None else None)
+    pi = np.array(pis[sel], np.float64)[:k_sel] if pis is not None else None
     labels = np.argmax(gamma, axis=1)
-    return [k_sel, x, labels, None, gamma, None, bics[:n_k]]
+    return [k_sel, x, labels, theta, gamma, pi, bics[:n_k]]
 
 
 def _select_result_labels(x, bics, labels_all, n_k):
@@ -413,10 +533,81 @@ def _select_result_labels(x, bics, labels_all, n_k):
 
 def em_cluster_batch(feats: list[np.ndarray], max_c: int = MAX_K,
                      seed: int = 2023, dtype=None, nsteps: int = NSTEP,
-                     device="cpu", uniforms=None):
+                     device="cuda", uniforms=None):
     """Batched EMCluster over many windows: [K, x, labels, theta, gamma,
     pi, bics] per window (theta and pi are not computed by the folded
     path and are None)."""
     return em_cluster_batch_dispatch(feats, max_c=max_c, seed=seed,
                                      dtype=dtype, nsteps=nsteps,
                                      device=device, uniforms=uniforms)()
+
+
+def _prepare_window(x: np.ndarray, max_c: int, n_pad: int, nf_pad: int):
+    """Host prep of one window for the per-K EM (svscope_tpu
+    mixture._prepare_window): one-hot matrix, Ward-init hard assignments
+    for every K, masks and counts."""
+    n, nf = x.shape
+    kmax_excl = min(max_c + 1, n)
+    n_k = max(kmax_excl - 1, 1)
+    kmax = min(n_k, MAX_K)
+    hard = (np.zeros((kmax, n), np.int32) if n < 2
+            else ward_cut_many([pairwise_identity(x)], kmax)[0])
+    x_oh = np.zeros((n_pad, nf_pad, ALPHA), dtype=np.float64)
+    valid = x < ALPHA
+    idx = np.where(valid)
+    x_oh[idx[0], idx[1], x[valid]] = 1.0
+    gamma0_all = np.zeros((MAX_K, n_pad, MAX_K), np.float64)
+    kmask_all = np.zeros((MAX_K, MAX_K), bool)
+    for ki in range(n_k):
+        kmask_all[ki, :ki + 1] = True
+        gamma0_all[ki, np.arange(n), hard[ki]] = 1.0
+    read_mask = np.zeros(n_pad, np.float64)
+    read_mask[:n] = 1.0
+    return x_oh, read_mask, gamma0_all, kmask_all, n_k, zero_param_count(x)
+
+
+def em_cluster(seqdatamx: np.ndarray, max_c: int = MAX_K, seed: int = 2023,
+               dtype=None, nsteps: int = NSTEP, device="cuda", gammas=None):
+    """EMCluster equivalent (src/ReadsCluster.py:221-277) for one window:
+    [K, seqdatamx, labels, theta, gamma, pi, bic_list], with the
+    reference's NaN-BIC retry (up to MAX_EM_ATTEMPTS attempts, fresh draws
+    each; finite K-runs keep their first result).
+
+    device: where the EM runs (default cuda; raises when CUDA is absent).
+    Reads and features are always padded to the shape buckets (masked
+    rows, zero one-hots), so the draws' nf_pad axis matches JAX's.
+    gammas: callable (seed, attempt, nf_pad, nsteps, dtype, device) ->
+    (MAX_K, nsteps + 1, MAX_K, nf_pad, 5) Gamma(1) draws; default
+    `torch_gammas`."""
+    dtype = resolve_dtype(dtype)
+    device = resolve_device(device)
+    gammas = gammas or torch_gammas
+    x = np.asarray(seqdatamx)
+    n, nf = x.shape
+    n_pad = _bucket(n, READS_LADDER)
+    nf_pad = _bucket(nf)
+    x_oh, read_mask, gamma0_all, kmask_all, n_k, zpn = _prepare_window(
+        x, max_c, n_pad, nf_pad)
+    cast = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
+    args = (cast(x_oh), cast(read_mask), cast(gamma0_all),
+            torch.as_tensor(kmask_all, device=device), cast(float(n)),
+            cast(float(nf)), cast(float(zpn)))
+    want = (MAX_K, nsteps + 1, MAX_K, nf_pad, ALPHA)
+
+    def run(attempt):
+        g = gammas(seed, attempt, nf_pad, nsteps, dtype, device)
+        if tuple(g.shape) != want:
+            raise ValueError(f"gammas shape {tuple(g.shape)}, expected "
+                             f"{want}")
+        out = _em_all_k(*args, g.to(device=device, dtype=dtype), nsteps)
+        return [np.array(v.cpu().numpy(), np.float64) for v in out]
+
+    bics, gams, pis, thetas = run(0)
+    for attempt in range(1, MAX_EM_ATTEMPTS):
+        bad = np.flatnonzero(np.isnan(bics[:n_k]))
+        if bad.size == 0:
+            break
+        b2, g2, p2, t2 = run(attempt)
+        bics[bad], gams[bad], pis[bad], thetas[bad] = \
+            b2[bad], g2[bad], p2[bad], t2[bad]
+    return _select_result(x, bics, gams, n_k, pis, thetas)

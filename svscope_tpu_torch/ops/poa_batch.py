@@ -21,13 +21,13 @@ import ctypes
 import os
 
 import numpy as np
-import torch
 
 from ..native.poa import (NativePoaGraph, native_available,
                           poa_msa_batch_native, poa_native)
 from . import poa_align
 from .poa_fused import fused_msa_batch
 from .poa_device import MAX_PREDS, to_torch_packed, unpack_alignment_arrays
+from ..utils.device import resolve_device
 
 N_LADDER = (128, 256, 512, 1024, 2048)
 L_LADDER = (64, 128, 256, 512, 1024, 2048)
@@ -76,15 +76,17 @@ def _require_native():
 
 
 def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
-                  threads: int | None = None, device="cpu"):
+                  threads: int | None = None, device="cuda"):
     """spoa-equivalent poa(seqs, 1) over many windows.
 
     use_device: False/"host" = host C++ engine; True/"pallas"/"xla" =
     per-round device alignment through ops.poa_align.align_batch on
     `device` (the CUDA kernel on a CUDA device, its plain torch version on
     the CPU); "fused" = the whole build on `device`
-    (ops/poa_fused.fused_msa_batch).
+    (ops/poa_fused.fused_msa_batch).  `device` defaults to cuda (raises
+    when CUDA is absent).
     Returns [(consensus, msa_rows)] per window."""
+    device = resolve_device(device)
     _require_native()
     if not use_device or use_device == "host":
         if len(seq_lists) > 1:
@@ -95,7 +97,6 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
         return fused_msa_batch(seq_lists, device=device)
     if use_device not in (True, "pallas", "xla"):
         raise ValueError(f"unknown device POA engine {use_device!r}")
-    device = torch.device(device)
     graphs = [_Graph() for _ in seq_lists]
     host_only = [False] * len(seq_lists)
     max_rounds = max((len(s) for s in seq_lists), default=0)

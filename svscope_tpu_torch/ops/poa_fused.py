@@ -41,6 +41,7 @@ import torch
 
 from .poa_device import MAX_PREDS
 from .poa_fused_kernel import ALPHA5, GraphState, align_tb, fusion
+from ..utils.device import resolve_device
 
 log = logging.getLogger("svscope_tpu_torch.poa_fused")
 
@@ -297,7 +298,7 @@ def consensus_walk(ch, pn, pw, pt, nn, order):
 
 # --------------------------------------------------------------- build ----
 
-def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cpu",
+def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cuda",
                    round_hook=None, timing=None) -> dict:
     """Whole MSA build of a window batch on `device`.
 
@@ -309,7 +310,7 @@ def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cpu",
     K3 and before the fusion of round r (it sees the real operands of
     both kernels); `timing`, when a dict, gets seconds per phase (the
     device is synchronised at every phase boundary)."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     B, R, l_max = seqs.shape
     ph = _Phases(timing, dev)
     seqs_d = torch.from_numpy(np.ascontiguousarray(seqs)).to(dev)
@@ -441,13 +442,14 @@ def chunk_arrays(chunk: list[int], encoded, r_max: int, l_max: int):
     return seqs_a, lens_a, nseq_a
 
 
-def fused_msa_batch(seq_lists: list[list[str]], device="cpu",
+def fused_msa_batch(seq_lists: list[list[str]], device="cuda",
                     timing=None):
     """spoa-equivalent poa(seqs, 1) over many windows with the whole MSA
     build on `device` (K3 and K4/K5 on a CUDA device, their plain versions
     on the CPU).  Returns [(consensus, msa_rows)] per window, identical to
     ops.poa.poa and the host C++ engine."""
     from ..native.poa import poa_msa_batch_native, poa_native
+    device = resolve_device(device)
     out, groups, fallback, encoded = plan_buckets(seq_lists)
     for (rb, lb, nb), idxs in groups.items():
         ncap = nb + 1

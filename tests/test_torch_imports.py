@@ -31,7 +31,8 @@ def _env():
 
 def test_port_and_smoke_import_nothing_of_jax_package():
     """Every module of the port, chip_smoke.py and the card-side helpers,
-    with jax and svscope_tpu blocked, then a synth-pair AlnFeature run; no
+    with jax and svscope_tpu blocked, then a synth-pair AlnFeature run and
+    a DataPrepare --saveData + localGraph_npz replay; no
     `jax` or `svscope_tpu(.*)` module may be loaded, and no library under
     svscope_tpu/ may be mapped."""
     script = textwrap.dedent("""
@@ -47,9 +48,12 @@ def test_port_and_smoke_import_nothing_of_jax_package():
             importlib.import_module(name)
         import chip_smoke, torch_workloads, localgraph_golden
         import alnfeature_golden as ag
+        import dataprepare_golden as dg
         raw = ag.load_golden()["synth_pair"]["raw_bed"]
         out = ag.port_aln_outputs(raw, "cpu")
         assert out == ag.load_golden()["synth_pair"]["outputs"]
+        assert dg.port_npz_replay("cpu") == \
+            dg.load_golden()["npz_replay"]["raw_bed"]
         bad = [m for m in sys.modules if m.split(".")[0] in
                ("jax", "svscope_tpu") and sys.modules[m] is not None]
         assert not bad, bad

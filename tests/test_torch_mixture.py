@@ -103,7 +103,8 @@ def test_em_matches_jax_with_jax_draws(feats, dtype, labels_only):
                                          labels_only=labels_only)()
     got = tmx.em_cluster_batch_dispatch(x, dtype=tdt,
                                         labels_only=labels_only,
-                                        uniforms=jax_uniforms)()
+                                        uniforms=jax_uniforms,
+                                        device="cpu")()
     _assert_match(want, got, rtol,
                   restart_flips=(dtype == "float32" and feats == "bench16"))
 
@@ -111,7 +112,8 @@ def test_em_matches_jax_with_jax_draws(feats, dtype, labels_only):
 def test_em_own_generator_matches_jax_labels():
     x = _bench_feats()
     want = jmx.em_cluster_batch_dispatch(x, labels_only=True)()
-    got = tmx.em_cluster_batch_dispatch(x, labels_only=True)()
+    got = tmx.em_cluster_batch_dispatch(x, labels_only=True,
+                                        device="cpu")()
     for w, g in zip(want, got):
         assert w[0] == g[0] and np.array_equal(w[2], g[2])
 
@@ -146,7 +148,8 @@ def test_nan_bic_retry_recovers(monkeypatch, labels_only):
     name = "_em_folded_batch_light" if labels_only else "_em_folded_batch"
     clean = tmx.em_cluster_batch_dispatch(feats, dtype=torch.float64,
                                           labels_only=labels_only,
-                                          uniforms=jax_uniforms)()
+                                          uniforms=jax_uniforms,
+                                          device="cpu")()
     jcalls, tcalls = {"n": 0}, {"n": 0}
     monkeypatch.setattr(jmx, name, _flaky(getattr(jmx, name), jcalls, {1}))
     monkeypatch.setattr(tmx, name, _flaky(getattr(tmx, name), tcalls, {1}))
@@ -154,7 +157,8 @@ def test_nan_bic_retry_recovers(monkeypatch, labels_only):
                                          labels_only=labels_only)()
     got = tmx.em_cluster_batch_dispatch(feats, dtype=torch.float64,
                                         labels_only=labels_only,
-                                        uniforms=jax_uniforms)()
+                                        uniforms=jax_uniforms,
+                                        device="cpu")()
     assert tcalls["n"] == jcalls["n"] == 2
     _assert_match(want, got, 1e-10)
     for c, o in zip(clean, got):
@@ -170,7 +174,7 @@ def test_nan_bic_retry_exhausts_to_k1(monkeypatch):
     monkeypatch.setattr(tmx, "_em_folded_batch",
                         _flaky(tmx._em_folded_batch, calls,
                                set(range(1, 10))))
-    out = tmx.em_cluster_batch(feats, dtype=torch.float64)
+    out = tmx.em_cluster_batch(feats, dtype=torch.float64, device="cpu")
     assert calls["n"] == tmx.MAX_EM_ATTEMPTS == jmx.MAX_EM_ATTEMPTS
     K, _, labels, *_ = out[0]
     assert K == 1 and (labels == 0).all()

@@ -35,7 +35,7 @@ def test_device_rounds_match_host(monkeypatch, budget_windows):
         monkeypatch.setattr(poa_batch, "PLANE_BUDGET_BYTES",
                             poa_align.plane_bytes(budget_windows, 128, 64))
         assert poa_batch._split_batch(8, 128, 64) == 3
-    want = poa_batch.poa_msa_batch(wins, use_device=False)
+    want = poa_batch.poa_msa_batch(wins, use_device=False, device="cpu")
     got = poa_batch.poa_msa_batch(wins, use_device=True, device="cpu")
     assert got == want
     assert want == jax_poa_msa_batch(wins, use_device=False)

@@ -1,122 +1,20 @@
 """Inputs of the port's tests and of chip_smoke.py, free of the JAX package.
 
-The same generators as `bench.make_window_payloads` (kept in the package,
-svscope_tpu_torch/tools/workloads.py, for the kernel measurement tools)
-and `tests/synth.make_test_pair`, built on the port's own WindowData, BAM
-writer and FASTA writer, so the card's machine (which has no JAX) draws the
-identical inputs: the same rng calls in the same order give the same
-payloads and the same BAM bytes (tests/test_torch_imports.py holds them
-equal).
+The same generators as `bench.make_window_payloads` and
+`tests/synth.make_test_pair` (both kept in the package,
+svscope_tpu_torch/tools/workloads.py, for the kernel measurement tools and
+the chromosome bench), built on the port's own WindowData, BAM writer and
+FASTA writer, so the card's machine (which has no JAX) draws the identical
+inputs: the same rng calls in the same order give the same payloads and
+the same BAM bytes (tests/test_torch_imports.py holds them equal); and
+the seeded NW pair sets.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from svscope_tpu_torch.io.bam import BamRecord, BamWriter, parse_cigar_string
-from svscope_tpu_torch.io.fasta import write_fasta
-from svscope_tpu_torch.tools.workloads import make_window_payloads  # noqa: F401
-
-def rand_seq(rng, n):
-    return "".join(rng.choice(list("ACGT"), n))
-
-
-def make_read(ref: str, name: str, aln_start: int, aln_end: int,
-              sv: tuple | None = None, mapq: int = 60, flag: int = 0,
-              ref_id: int = 0) -> BamRecord:
-    """A read fully aligned over [aln_start, aln_end) with an optional SV:
-    sv=("INS", pos, seq) inserts seq after ref pos; sv=("DEL", pos, length)
-    deletes [pos, pos+length)."""
-    if sv is None:
-        seq = ref[aln_start:aln_end]
-        cig = f"{aln_end - aln_start}M"
-    elif sv[0] == "INS":
-        _, pos, ins = sv
-        assert aln_start < pos < aln_end
-        seq = ref[aln_start:pos] + ins + ref[pos:aln_end]
-        cig = f"{pos - aln_start}M{len(ins)}I{aln_end - pos}M"
-    elif sv[0] == "DEL":
-        _, pos, dlen = sv
-        assert aln_start < pos and pos + dlen < aln_end
-        seq = ref[aln_start:pos] + ref[pos + dlen:aln_end]
-        cig = f"{pos - aln_start}M{dlen}D{aln_end - pos - dlen}M"
-    else:
-        raise ValueError(sv)
-    ops, lens = parse_cigar_string(cig)
-    return BamRecord(name, flag, ref_id, aln_start, mapq, ops, lens, seq)
-
-
-def make_test_pair(tmpdir: str, seed: int = 0, ref_len: int = 60_000,
-                   windows=None, bg_reads_per_10kb: int = 3):
-    """Write ref.fa, tumor.bam, normal.bam into tmpdir.
-
-    windows: list of dicts {start, end, svtype ('INS'|'DEL'), svlen,
-    tumor_vaf_reads, depth}; default = one 60bp somatic INS window and one
-    clean window.
-    Returns (ref_path, tumor_bam, normal_bam, window_records, ref_seq).
-    """
-    rng = np.random.default_rng(seed)
-    ref = rand_seq(rng, ref_len)
-    ref_path = f"{tmpdir}/ref.fa"
-    write_fasta(ref_path, {"chr1": ref})
-    if windows is None:
-        windows = [
-            dict(start=1000, end=1100, svtype="INS", svlen=60, som_reads=5,
-                 depth=12),
-            dict(start=3000, end=3100, svtype=None, svlen=0, som_reads=0,
-                 depth=10),
-        ]
-    t_recs, n_recs = [], []
-    window_records = []
-    for wi, w in enumerate(windows):
-        s, e = w["start"], w["end"]
-        mid = (s + e) // 2
-        ins_seq = rand_seq(rng, w["svlen"]) if w["svtype"] == "INS" else ""
-        jitter = int(w.get("jitter", 15))
-        for i in range(w["depth"]):
-            a0 = s - 300 + int(rng.integers(0, 50))
-            a1 = e + 300 + int(rng.integers(0, 50))
-            a0 = max(a0, 0)
-            a1 = min(a1, ref_len)
-            has_sv = i < w["som_reads"]
-            sv = None
-            if has_sv and w["svtype"]:
-                # per-read breakpoint jitter like real ONT alignments, so
-                # merged candidate windows get nonzero width
-                m = mid + int(rng.integers(-jitter, jitter + 1))
-                if w["svtype"] == "INS":
-                    sv = ("INS", m, ins_seq)
-                else:
-                    sv = ("DEL", m - w["svlen"] // 2, w["svlen"])
-            t_recs.append(make_read(ref, f"w{wi}t{i}", a0, a1, sv))
-        for i in range(w["depth"]):
-            a0 = max(s - 300 + int(rng.integers(0, 50)), 0)
-            a1 = min(e + 300 + int(rng.integers(0, 50)), ref_len)
-            n_recs.append(make_read(ref, f"w{wi}n{i}", a0, a1, None))
-        window_records.append(f"chr1\t{s}\t{e}\t{w['depth']}\t{w['depth']}\t"
-                              f"{w['svtype'] or 'INS'}")
-    # scattered background coverage so genome-grid COV/mapQ stats vary
-    for chunk in range(0, ref_len, 10_000):
-        for i in range(int(rng.integers(max(bg_reads_per_10kb - 1, 1),
-                                        bg_reads_per_10kb + 2))):
-            a0 = chunk + int(rng.integers(0, 8000))
-            a1 = min(a0 + int(rng.integers(1500, 4000)), ref_len)
-            mq = 3 if rng.random() < 0.2 else 60  # some low-mapQ noise
-            t_recs.append(make_read(ref, f"bgt{chunk}_{i}", a0, a1, None,
-                                    mapq=mq))
-            b0 = chunk + int(rng.integers(0, 8000))
-            b1 = min(b0 + int(rng.integers(1500, 4000)), ref_len)
-            mq = 3 if rng.random() < 0.2 else 60
-            n_recs.append(make_read(ref, f"bgn{chunk}_{i}", b0, b1, None,
-                                    mapq=mq))
-    tumor = f"{tmpdir}/tumor.bam"
-    normal = f"{tmpdir}/normal.bam"
-    with BamWriter(tumor, ["chr1"], [ref_len]) as wtr:
-        for r in sorted(t_recs, key=lambda r: r.pos):
-            wtr.write(r)
-    with BamWriter(normal, ["chr1"], [ref_len]) as wtr:
-        for r in sorted(n_recs, key=lambda r: r.pos):
-            wtr.write(r)
-    return ref_path, tumor, normal, window_records, ref
+from svscope_tpu_torch.tools.workloads import (  # noqa: F401
+    make_read, make_test_pair, make_window_payloads, rand_seq)
 
 
 ACGT = np.frombuffer(b"ACGT", np.uint8)
