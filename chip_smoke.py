@@ -123,6 +123,23 @@ non-zero before the final line:
      launches counted from 0), which times every variant against its
      plain version, the kernels' calls queued ahead of the device, and
      max16 and roll16 beside torch.maximum and torch.roll.
+ 22. scale-out (svscope_tpu_torch/parallel, ops/poa_sharded, graft_entry,
+     tools/dist_worker), over a two-shard device tuple, ("cuda:0",
+     "cuda:0") on one GPU (and over every GPU where there are more): a
+     path check, not a scaling measurement.  dp-bench256-pallas and
+     dp-bench256-fused: process_window_batch with its dispatches split
+     over the tuple, golden 256/256, records == the unsharded run, the
+     last dispatch sharded in 2, K1 (K3 and K4) launched, w/s beside an
+     unsharded run of the same call; mp-heavy32x400: golden 32/32 with the
+     400-read EM split over the reads (LAST_MP_DISPATCH), the EM stage's
+     wall read-parallel and batched, K and labels equal; oversize: the 4k
+     tandem-repeat design point (banded, 2 shards) == the C++ engine's
+     alignment, its seconds, rows and direction blocks, launches a row
+     (torch.profiler, on a 1000-node chain), and a 2,500 bp window's MSA
+     with every round on the wavefront == the host MSA; dryrun:
+     graft_entry.entry() and dryrun_multichip(2) over the tuple;
+     multi-process: two dist_worker processes on the card (gloo rendezvous
+     on a file): merged Raw.bed == the single run == golden.
 
 With `--ab TREE ...` (source trees' roots, relative to this script; "."
 is this checkout), K1 at the k1-time and heavy shapes, K2 at every
@@ -143,7 +160,7 @@ new CLI path (launches_dataprepare, launches_chrom, ...), K1's the chrom
 run's stage walls, K1's and
 the pk kernels' the heavy shape as timed, K4's and K5's their single-call
 times, K4's its serial-walk windows per round checked, K2's its time per
-bucket launch), the card
+bucket launch; K1's, K3's and K4's their scale-out runs' launches), the card
 line, and the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
 package (checked at the end).
@@ -1826,6 +1843,253 @@ def check_int16_probe(dev):
 # fusion-body probe update the state in place: every call gets a fresh
 # clone, all made before the timing.  The int16 cases carry torch.maximum
 # and torch.roll on the same arrays beside them.
+def _golden_count(recs, want):
+    import localgraph_golden as lgg
+    from svscope_tpu_torch.engine.localgraph import record_line
+    return sum(lgg.sha256(record_line(r)) == h for r, h in zip(recs, want))
+
+
+def _timed(fn):
+    import torch
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def oversize_window(rng, unit_len=60, length=2500, n_reads=3):
+    """One window past the 2048 buckets: a tandem-repeat reference of
+    `length` bp and noisy copies of it (substitutions and 1 bp indels)."""
+    unit = "".join(rng.choice(list("ACGT"), unit_len))
+    ref = (unit * (length // unit_len + 1))[:length]
+    out = [ref]
+    for _ in range(n_reads):
+        b = list(ref)
+        for _ in range(length // 60):
+            p = int(rng.integers(1, len(b) - 1))
+            op = int(rng.integers(0, 3))
+            if op == 0:
+                b[p] = str(rng.choice(list("ACGT")))
+            elif op == 1:
+                b.insert(p, str(rng.choice(list("ACGT"))))
+            else:
+                b.pop(p)
+        out.append("".join(b))
+    return out
+
+
+def design_point(rng):
+    """The 4k tandem-repeat design point of tests/test_poa_sharded.py:206:
+    a C++ graph of a 3,900 bp repeat and two noisy copies (3,900-4,096
+    nodes), and a read past 4,096 bp."""
+    from svscope_tpu_torch.native.poa import NativePoaGraph
+    reads = oversize_window(rng, 60, 3900, 2)
+    g = NativePoaGraph()
+    for r in reads:
+        g.add_sequence(r)
+    read = oversize_window(rng, 60, 4300, 1)[1]
+    return g, read
+
+
+def launches_profiled(fn):
+    """fn()'s kernel launches and device copies, read from torch.profiler's
+    runtime-call counts; None where the profiler records none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()}
+    n = counts.get("cudaLaunchKernel", 0) + counts.get("cuLaunchKernel", 0)
+    return (n or None), counts.get("cudaMemcpyAsync", 0)
+
+
+def check_scale_out(golden, dev, bench_recs, heavy_recs):
+    """Phase scale-out: the JAX package's scale-out ported
+    (svscope_tpu_torch/parallel, ops/poa_sharded, graft_entry, the
+    dist_worker tool) on a device tuple of two shards: ("cuda:0",
+    "cuda:0") on a one-GPU card, and over every GPU too where there are
+    more.  A path check, not a scaling measurement: two shards on one card
+    share it.  Returns the K1/K3/K4 launches of each run."""
+    import numpy as np
+    import torch
+    import localgraph_golden as lgg
+    from svscope_tpu_torch import graft_entry
+    from svscope_tpu_torch.engine import localgraph as tlg
+    from svscope_tpu_torch.models import mixture as mx
+    from svscope_tpu_torch.native.poa import NativePoaGraph
+    from svscope_tpu_torch.ops import poa_batch as pb
+    from svscope_tpu_torch.ops import poa_sharded as ps
+    from svscope_tpu_torch.parallel import dataparallel as dpm
+    from svscope_tpu_torch.tools import multihost_demo
+    t_all = time.perf_counter()
+    n_gpu = torch.cuda.device_count()
+    meshes = [(dev, dev)]
+    if n_gpu > 1:
+        meshes.append(dpm.make_dp_mesh())
+    print(f"[scale-out] meshes {[[str(d) for d in m] for m in meshes]} "
+          f"({n_gpu} GPU)", flush=True)
+    runs = {}
+    bench = lgg.make_workload("bench256")
+    want = golden["workloads"]["bench256"]["records"]
+    for mesh in meshes:
+        tag = "" if mesh == meshes[0] else f"-{len(mesh)}gpu"
+        for engine, need, ref_recs in (("pallas", ("K1",), bench_recs),
+                                       ("fused", ("K3", "K4"), bench_recs)):
+            name = f"dp-bench256-{engine}{tag}"
+            t0 = time.perf_counter()
+            _, base_s = _timed(lambda: tlg.process_window_batch(
+                bench, device=dev, device_poa=engine))
+            with dpm.data_mesh_installed(mesh):
+                (recs, dp_s), launches = path_launches(
+                    name, lambda: _timed(lambda: tlg.process_window_batch(
+                        bench, device=dev, device_poa=engine)), need)
+                disp = dict(dpm.LAST_DISPATCH)
+            same = _golden_count(recs, want)
+            if same != len(want) or recs != ref_recs:
+                raise RuntimeError(f"{name}: golden {same}/{len(want)}, "
+                                   f"== unsharded {recs == ref_recs}")
+            if disp != {"sharded": True, "n_shards": len(mesh)}:
+                raise RuntimeError(f"{name}: last dispatch {disp}")
+            runs[name] = launches
+            phase(name, t0, f"golden {same}/{len(want)}, records == "
+                  f"unsharded, last dispatch {disp}, launches {launches}; "
+                  f"{len(bench) / dp_s:.3f} w/s over {len(mesh)} shards, "
+                  f"{len(bench) / base_s:.3f} w/s unsharded (a path check: "
+                  "the shards share the card)")
+
+    # mp-heavy32x400: the heavy windows' 400-read EM split over the reads
+    t0 = time.perf_counter()
+    mesh = meshes[0]
+    heavy = lgg.make_workload("heavy32x400")
+    hwant = golden["workloads"]["heavy32x400"]["records"]
+    _entries, ready = tlg._stage_a(heavy, "tumor", 3, 0.05, "pallas", None,
+                                   dev)
+    feats = [f for (_w, _e, _r, f, _t) in ready]
+    em = lambda: mx.em_cluster_batch_dispatch(feats, labels_only=True,
+                                              device=dev)()
+    base_em, em_s = _timed(em)
+    with dpm.data_mesh_installed(mesh):
+        got_em, mp_em_s = _timed(em)
+        mp = dict(mx.LAST_MP_DISPATCH)
+        (recs, mp_s), launches = path_launches(
+            "mp-heavy32x400", lambda: _timed(lambda: tlg.process_window_batch(
+                heavy, device=dev)), ("K1",))
+        mp_run = dict(mx.LAST_MP_DISPATCH)
+    same = _golden_count(recs, hwant)
+    if same != len(hwant) or recs != heavy_recs:
+        raise RuntimeError(f"mp-heavy32x400: golden {same}/{len(hwant)}")
+    if not (mp["used"] and mp_run["used"]) or mp["n_shards"] != len(mesh):
+        raise RuntimeError(f"mp-heavy32x400: mp EM not engaged {mp}")
+    if any(a[0] != b[0] or not np.array_equal(a[2], b[2])
+           for a, b in zip(base_em, got_em)):
+        raise RuntimeError("mp-heavy32x400: mp EM K or labels differ")
+    runs["mp-heavy32x400"] = launches
+    phase("mp-heavy32x400", t0, f"golden {same}/{len(hwant)}, records == "
+          f"unsharded, LAST_MP_DISPATCH {mp_run} (EM alone: {mp}); EM "
+          f"stage of {len(feats)} windows {mp_em_s:.4f} s read-parallel, "
+          f"{em_s:.4f} s batched, K and labels equal; run {mp_s:.3f} s "
+          f"({len(heavy) / mp_s:.3f} w/s); launches {launches}")
+
+    # oversize: the design point, banded, over the two shards
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    g, read = design_point(rng)
+    n = g.n_nodes()
+    packed = g.pack(4096, ps.MAX_PREDS)
+    host_aln, host_s = _timed(lambda: g.align_only(read))
+    ps.reset_counts()
+    (aln, _score), wall = _timed(lambda: ps.align_sharded_packed(
+        *packed, read, mesh, traceback="auto"))
+    counts = dict(ps.COUNTS)
+    if aln != host_aln or counts["dir_blocks"] == 0:
+        raise RuntimeError(f"oversize: design point != C++ engine "
+                           f"(dir blocks {counts['dir_blocks']})")
+    # launches: profiled on a 1000-node chain (the same per-row ops)
+    small = oversize_window(np.random.default_rng(1), 48, 1000, 1)
+    sg = NativePoaGraph()
+    sg.add_sequence(small[0])
+    ps.reset_counts()
+    n_launch, n_copy = launches_profiled(lambda: ps.align_sharded_packed(
+        *sg.pack(1024, ps.MAX_PREDS), small[1], mesh, traceback="banded"))
+    sub_rows = ps.COUNTS["rows"]
+    per_row = n_launch / sub_rows if n_launch else None
+    # one oversize window's MSA, every round on the wavefront
+    win = oversize_window(np.random.default_rng(2))
+    host_msa = pb.poa_msa_batch([win], use_device=False, device=dev)
+    pb.set_default_oversize_mesh(mesh)
+    try:
+        ps.reset_counts()
+        (msa, msa_s) = _timed(lambda: pb.poa_msa_batch(
+            [win], use_device=True, device=dev))
+        msa_rows = ps.COUNTS["rows"]
+    finally:
+        pb.set_default_oversize_mesh(None)
+    if msa != host_msa or msa_rows == 0:
+        raise RuntimeError("oversize: wavefront MSA != host MSA")
+    phase("oversize", t0, f"design point N={n} nodes x {len(read)} bp read, "
+          f"2 shards, banded: == C++ engine; {wall:.3f} s ({counts['rows']} "
+          f"device rows, {counts['dir_blocks']} direction blocks; the C++ "
+          f"engine {host_s:.3f} s); launches "
+          + (f"{per_row:.2f} per device row profiled on a 1000-node chain "
+             f"({n_launch} launches, {n_copy} copies, {sub_rows} rows), "
+             f"~{per_row * counts['rows']:.0f} at the design point"
+             if per_row else "not measured (profiler recorded none)")
+          + f"; one {len(win[0])} bp window's MSA with use_device=True == "
+          f"host MSA, {msa_s:.3f} s ({msa_rows} device rows)")
+
+    # dryrun: graft_entry's seven assertions over the two shards
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry(dev)
+    bics, _gam = fn(*args)
+    if not bool(torch.isfinite(bics).all()):
+        raise RuntimeError("graft entry: non-finite BICs")
+    _out, launches = path_launches(
+        "dryrun", lambda: graft_entry.dryrun_multichip(len(mesh), mesh),
+        ("K1", "K3", "K4"))
+    runs["dryrun"] = launches
+    phase("dryrun", t0, f"entry (16, 32, 64) finite; dryrun_multichip("
+          f"{len(mesh)}) over {[str(d) for d in mesh]} passed; launches "
+          f"{launches}")
+
+    # multi-process: two dist_worker processes on the card, gloo rendezvous
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ref, tumor, normal, recs = lgg.make_synth_pair(d)
+        wb = os.path.join(d, "windows.bed")
+        with open(wb, "w") as f:
+            f.write("\n".join(recs) + "\n")
+        single, single_s = _timed(lambda: tlg.run_local_graph(
+            recs, ref, [tumor], [normal], ["S"], ["S"],
+            os.path.join(d, "single"), offset=50, device=dev,
+            data_parallel=False))
+        t = time.perf_counter()
+        res = multihost_demo.launch_workers(
+            2, f"file://{d}/rendezvous", ref, tumor, normal, wb,
+            os.path.join(d, "dist"), [str(dev)] * 2)
+        procs_s = time.perf_counter() - t
+        for rc, out in res:
+            if rc != 0:
+                raise RuntimeError(f"multi-process: worker rc {rc}:\n"
+                                   f"{out[-3000:]}")
+        with open(single, "rb") as f:
+            a = f.read()
+        with open(os.path.join(d, "dist", os.path.basename(single)),
+                  "rb") as f:
+            b = f.read()
+    if a != b or hashlib.sha256(a).hexdigest() != \
+            golden["synth_pair"]["raw_bed_sha256"]:
+        raise RuntimeError("multi-process: merged Raw.bed != single run")
+    phase("multi-process", t0, f"2 dist_worker processes on {dev} (gloo "
+          f"rendezvous, block-cyclic shards): merged Raw.bed == the single "
+          f"run == golden; workers {procs_s:.3f} s (start-up included), "
+          f"single {single_s:.3f} s")
+    print(f"[scale-out-total] {time.perf_counter() - t_all:.3f} s",
+          flush=True)
+    return runs
+
+
 AB_SNIPPET = """
 import inspect, json, sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -2062,6 +2326,10 @@ def main(argv=None):
     probes = {"row": check_row_probe(dev),
               "fusebody": check_fusebody_probe(dev),
               "int16": check_int16_probe(dev)}
+    # the scale-out: dp, mp, the oversize wavefront, the dry run and two
+    # processes; K1's, K3's and K4's launches of each run counted from 0
+    scale = check_scale_out(golden, dev, bench_recs, heavy_recs)
+    launches += sum(r["K1"] for r in scale.values())
     if args.ab:
         run_ab(args.ab, k2_groups, k2_pairs, pk_ab)
 
@@ -2089,6 +2357,7 @@ def main(argv=None):
     for path, r in new_paths.items():
         if path != "dataprepare-fused":
             k1[f"launches_{path.replace('-', '_')}"] = r["K1"]
+    k1["launches_scale_out"] = {p: r["K1"] for p, r in scale.items()}
     k1["chrom_stage_s"] = chrom["stages"]
     k1["heavy_shape"] = {"B": 32, "N": 1024, "L": 512,
                          "ms": k1_heavy["ms"],
@@ -2109,6 +2378,8 @@ def main(argv=None):
             entry["launches_bench256"] = pk_launches[k]
             entry["launches_heavy32x400"] = heavy_pk[k]
             entry["launches_dataprepare_fused"] = fused_dp
+            entry["launches_scale_out"] = {p: r[k] for p, r in scale.items()}
+            entry["launches"] += sum(r[k] for r in scale.values())
         # each pk kernel at the heavy capture, as timed
         entry["heavy_shape"] = {**heavy_shape, "round": PK_HEAVY_ROUND + 1,
                                 "ms": pk_ms[k + " heavy"][0],

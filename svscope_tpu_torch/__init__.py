@@ -18,8 +18,12 @@ layout so each module's counterpart is easy to find:
   engine/  window payloads, per-window decision, the localGraph engine and
            the AlnFeature stage (features.py)
   out/     VCF emission, merge and adjustment (copies)
-  cli.py   the `localGraph`, `AlnFeature`, `callsomaticSV` and `adjustVCF`
-           subcommands
+  parallel/ the scale-out: a device tuple that splits the engine's batched
+           dispatches (dataparallel.py) and the multi-process window stream
+           (shard.py); ops/poa_sharded.py
+           is the column-sharded wavefront of oversized windows
+  cli.py   every subcommand of the JAX CLI
+  graft_entry.py  the per-K EM forward and the scale-out dry run
 
 The port imports `torch` and never `jax`, and nothing of `svscope_tpu`: the
 modules of the JAX package that never import JAX are copied here, and only

@@ -19,8 +19,11 @@ the per-round device aligner (the CUDA kernel on cuda, its plain torch
 version on cpu) — except that an omitted flag on cpu keeps the host C++
 engine, as the JAX engine does on its CPU backend; `host` selects the C++
 engine; `fused` keeps the whole MSA build on the device (kernels K3 and
-K4/K5 on cuda, their plain torch versions on cpu).  `--oversize-sharded` is
-not ported yet and raises.
+K4/K5 on cuda, their plain torch versions on cpu).  `--oversize-sharded`
+aligns windows past the 2048-node / 2048 bp buckets through the column-
+sharded wavefront (ops/poa_sharded) over every local CUDA device (one card:
+a one-device tuple, as the JAX CLI's mesh over one chip), or over the CPU
+with `--device cpu`.
 """
 from __future__ import annotations
 
@@ -30,9 +33,6 @@ import os
 
 log = logging.getLogger("svscope_tpu_torch.cli")
 
-_NOT_PORTED = "not yet ported to svscope_tpu_torch (see ROADMAP.md)"
-
-
 def _device_poa_arg(args):
     v = getattr(args, "device_poa", None)
     if v == "host":
@@ -40,20 +40,36 @@ def _device_poa_arg(args):
     return v
 
 
+def _oversize_devices(device: str) -> tuple:
+    """--oversize-sharded's device tuple: every local CUDA device on cuda
+    (svscope_tpu/cli.py:143-149 takes every JAX device), the CPU on cpu."""
+    import torch
+    from .utils.device import resolve_device
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return (dev,)
+    return tuple(resolve_device(f"cuda:{i}")
+                 for i in range(torch.cuda.device_count()))
+
+
 def cmd_local_graph(args):
     from .engine.localgraph import run_local_graph
-    if args.oversize_sharded:
-        raise NotImplementedError(f"--oversize-sharded is {_NOT_PORTED}")
+    from .ops.poa_batch import set_default_oversize_mesh
     device_poa = _device_poa_arg(args)
     records = [l for l in open(args.windowBed).read().splitlines()
                if l.strip() and not l.startswith("chrom\t")]
-    return run_local_graph(
-        records, args.Reference, args.Tumorbam.split(","),
-        args.Normalbam.split(","), args.TSampleID.split(","),
-        args.NSampleID.split(","), args.savedir, offset=args.offset,
-        mapq=args.mapQ, continue_run=args.Continue,
-        em_dtype=args.device_dtype, device_poa=device_poa,
-        threads=int(args.thread or 8), device=args.device)
+    if args.oversize_sharded:
+        set_default_oversize_mesh(_oversize_devices(args.device))
+    try:
+        return run_local_graph(
+            records, args.Reference, args.Tumorbam.split(","),
+            args.Normalbam.split(","), args.TSampleID.split(","),
+            args.NSampleID.split(","), args.savedir, offset=args.offset,
+            mapq=args.mapQ, continue_run=args.Continue,
+            em_dtype=args.device_dtype, device_poa=device_poa,
+            threads=int(args.thread or 8), device=args.device)
+    finally:
+        set_default_oversize_mesh(None)
 
 
 def _load_tables(args):
@@ -272,7 +288,10 @@ def _common_bam_args(p, window_bed=True):
         p.add_argument("-w", "--windowBed", required=True)
     _device_poa_flag(p)
     p.add_argument("--oversize-sharded", action="store_true",
-                   help="not ported yet (raises)")
+                   help="align windows beyond the 2048-node/2048 bp device "
+                        "buckets (giant tandem repeats) via the sequence-"
+                        "sharded wavefront over every local CUDA device "
+                        "(the CPU with --device cpu) instead of the host DP")
     p.add_argument("-T", "--Tumorbam", required=True)
     p.add_argument("-N", "--Normalbam", required=True)
     p.add_argument("-t", "--TSampleID", required=True)

@@ -270,11 +270,42 @@ def run_local_graph(window_records: list[str], reference: str,
                     t_label: str = "tumor", readcutoff: int = 3,
                     hcutoff: int = 3, scutoff: float = 0.05,
                     device_poa=None, threads: int | None = None,
-                    device="cuda", uniforms=None) -> str:
+                    device="cuda", uniforms=None,
+                    data_parallel=None) -> str:
     """Batched localGraph (src/SVscope.py:118-183 equivalent), with resume
-    and the DUP corner rescue.  Returns the Raw.bed path."""
+    and the DUP corner rescue.  Returns the Raw.bed path.
+
+    data_parallel: split the engine's batched device dispatches (EM, POA
+    rounds, fused builds) over a device tuple (parallel/dataparallel), the
+    replacement for the reference's 6-process window pool: True = every
+    local CUDA device, a sequence = those devices, None or False = off.
+    Off by default, even with several GPUs: no multi-GPU run has shown a
+    gain yet, the read-parallel EM issues a window's launches one by one
+    from the host, and the fused build's host syncs keep its parts from
+    running at once.  The mesh is cleared when the run ends, so no later
+    call inherits it."""
+    from ..parallel.dataparallel import data_mesh_installed, make_dp_mesh
     dev = resolve_device(device)
     device_poa = resolve_device_poa(device_poa, dev)
+    mesh = None
+    if data_parallel is True:
+        mesh = make_dp_mesh()
+    elif data_parallel:
+        mesh = make_dp_mesh(devices=data_parallel)
+    with data_mesh_installed(mesh):
+        return _run_local_graph(
+            window_records, reference, tumor_bams, normal_bams, t_ids, n_ids,
+            savedir, offset=offset, mapq=mapq, batch_size=batch_size,
+            continue_run=continue_run, em_dtype=em_dtype, t_label=t_label,
+            readcutoff=readcutoff, hcutoff=hcutoff, scutoff=scutoff,
+            device_poa=device_poa, threads=threads, dev=dev,
+            uniforms=uniforms)
+
+
+def _run_local_graph(window_records, reference, tumor_bams, normal_bams,
+                     t_ids, n_ids, savedir, *, offset, mapq, batch_size,
+                     continue_run, em_dtype, t_label, readcutoff, hcutoff,
+                     scutoff, device_poa, threads, dev, uniforms) -> str:
     os.makedirs(savedir, exist_ok=True)
     out_path = os.path.join(savedir, raw_bed_name(t_ids, n_ids))
     done: set[str] = set()

@@ -20,6 +20,12 @@ every window of the chunk.  By default they come from a torch.Generator
 seeded from (seed, attempt); the `uniforms=` callable replaces them (the
 tests hand in JAX's own draws, which makes the BICs comparable).
 K and labels do not depend on the stream on the engine's workloads.
+With a data mesh installed (parallel/dataparallel), each bucket chunk's
+window axis is split over its devices, and a window past
+MP_READ_THRESHOLD reads whose read bucket the mesh divides runs
+read-parallel: its reads are split over the devices, each shard sums its
+reads in order, and the shards' partials are summed in shard order on the
+first device (`_FoldedShard`, `_em_folded_shards`).
 The per-K path draws Gamma(1) variates (JAX: `jax.random.gamma(key, ones)`
 per run and step); here they are an explicit (MAX_K, nsteps + 1, MAX_K,
 nf_pad, 5) input per attempt, -log(U) from a torch.Generator seeded from
@@ -30,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..parallel.dataparallel import cross_sum, data_mesh, shard_batch
 from ..utils.device import resolve_device, resolve_dtype
 
 ALPHA = 5          # alphabet size {A,T,C,G,-}
@@ -155,7 +162,8 @@ def _m_step(gamma, x_flat, read_mask, n_true, kmask, draws):
     gamma (R, N, K); x_flat (N, nf*5); kmask (R, K) bool; draws (R, K, nf,
     5) Gamma(1) variates.  Returns pi (R, K), theta (R, K, nf*5)."""
     gamma = gamma * read_mask[None, :, None]
-    # reads summed in order, as XLA's reduction does (see _em_folded_batch)
+    # reads summed in order, as XLA's reduction does (see
+    # _FoldedShard.m_partials)
     denom = gamma.cumsum(dim=1)[:, -1]                            # (R, K)
     pi = denom / n_true
     counts = torch.matmul(gamma.transpose(1, 2), x_flat)          # (R, K, F)
@@ -238,99 +246,139 @@ def _em_all_k(x_oh, read_mask, gamma0_all, kmask_all, n_true, nf_true,
 # Folded EM (batched over windows)
 # ---------------------------------------------------------------------------
 
-def _em_folded_batch(codes, hard, n_k, n_true, nf_true, zpn, uniforms,
-                     nsteps: int = NSTEP):
-    """45-slot folded EM over a batch of windows
-    (svscope_tpu/models/mixture.py::_em_folded_one, window axis leading).
+class _FoldedShard:
+    """One read shard of a window batch's 45-slot folded EM
+    (svscope_tpu/models/mixture.py::_em_folded_one, window axis leading):
+    every op that does not sum over reads.  The read sums (the M-step's
+    denominator and counts, the log-likelihood) are returned as partials
+    and summed by the caller, over the read shards of the JAX package's
+    psum_axis; `read_off` is the shard's first read's global position.
 
-    codes (B, n_pad, nf_pad) int8 (PAD_CODE pads); hard (B, 9, n_pad) Ward
-    labels per K-run; n_k, n_true (B,) int; nf_true, zpn (B,) float;
-    uniforms (nsteps + 1, 45, nf_pad, 5) shared by the batch.
-    Returns bics (B, 9) and per-run gamma (B, 9, n_pad, 9)."""
-    dtype = uniforms.dtype
-    dev = codes.device
-    B, n_pad, nf_pad = codes.shape
-    seg = torch.as_tensor(SEG, dtype=dtype, device=dev)           # (R, 9)
-    slot_run = torch.as_tensor(SLOT_RUN, device=dev)
-    slot_k = torch.as_tensor(SLOT_K, dtype=dtype, device=dev)
-    run_off = torch.as_tensor(RUN_OFF, device=dev)
+    codes (B, n_loc, nf_pad) int8 (PAD_CODE pads); hard (B, 9, n_loc) Ward
+    labels per K-run; n_k, n_true (B,) int; uniforms (nsteps + 1, 45,
+    nf_pad, 5) shared by the batch."""
 
-    alphabet = torch.arange(ALPHA, dtype=codes.dtype, device=dev)
-    x_flat = (codes[..., None] == alphabet).reshape(
-        B, n_pad, nf_pad * ALPHA).to(dtype)
-    read_mask = (torch.arange(n_pad, device=dev)[None, :]
-                 < n_true[:, None]).to(dtype)                     # (B, n)
-    nt = n_true.to(dtype)[:, None]                                # (B, 1)
-    slot_active = slot_run[None, :] < n_k[:, None]                # (B, R)
+    def __init__(self, codes, hard, n_k, n_true, uniforms, read_off: int = 0):
+        dtype = uniforms.dtype
+        dev = codes.device
+        B, n_loc, nf_pad = codes.shape
+        self.u = uniforms
+        self.seg = torch.as_tensor(SEG, dtype=dtype, device=dev)    # (R, 9)
+        self.slot_run = torch.as_tensor(SLOT_RUN, device=dev)
+        self.slot_k = torch.as_tensor(SLOT_K, dtype=dtype, device=dev)
+        run_off = torch.as_tensor(RUN_OFF, device=dev)
 
-    # init gamma: run r's hard labels land in slots run_off[r] + label
-    slots0 = run_off[None, :, None] + hard.long()                 # (B, 9, n)
-    run_ok = torch.arange(MAX_K, device=dev)[None, :] < n_k[:, None]
-    slots0 = torch.where(run_ok[:, :, None], slots0, -1)
-    gamma0 = torch.zeros((B, n_pad, R_TOTAL), dtype=dtype, device=dev)
-    for r in range(MAX_K):
-        s = slots0[:, r]                                          # (B, n)
-        hit = (s[..., None] == torch.arange(R_TOTAL, device=dev))
-        gamma0 = gamma0 + hit.to(dtype)
-    gamma0 = gamma0 * read_mask[..., None]
+        alphabet = torch.arange(ALPHA, dtype=codes.dtype, device=dev)
+        self.x_flat = (codes[..., None] == alphabet).reshape(
+            B, n_loc, nf_pad * ALPHA).to(dtype)
+        ridx = torch.arange(n_loc, device=dev) + read_off
+        self.read_mask = (ridx[None, :] < n_true[:, None]).to(dtype)  # (B, n)
+        self.nt = n_true.to(dtype)[:, None]                           # (B, 1)
+        self.slot_active = self.slot_run[None, :] < n_k[:, None]      # (B, R)
 
-    def m_step(gamma, u):
-        g = gamma * read_mask[..., None]
-        # reads summed in order (as XLA's reduction does): a one-read
-        # cluster sits right on the pi*N < 1 restart threshold, where a
-        # one-ulp difference of another summation order flips the restart
-        denom = g.cumsum(dim=1)[:, -1]                            # (B, R)
-        counts = torch.bmm(g.transpose(1, 2), x_flat)             # (B, R, F)
+        # init gamma: run r's hard labels land in slots run_off[r] + label
+        slots0 = run_off[None, :, None] + hard.long()             # (B, 9, n)
+        run_ok = torch.arange(MAX_K, device=dev)[None, :] < n_k[:, None]
+        slots0 = torch.where(run_ok[:, :, None], slots0, -1)
+        gamma0 = torch.zeros((B, n_loc, R_TOTAL), dtype=dtype, device=dev)
+        for r in range(MAX_K):
+            s = slots0[:, r]                                          # (B, n)
+            hit = (s[..., None] == torch.arange(R_TOTAL, device=dev))
+            gamma0 = gamma0 + hit.to(dtype)
+        self.gamma0 = gamma0 * self.read_mask[..., None]
+
+    def m_partials(self, gamma):
+        """This shard's (denominator (B, R), counts (B, R, F)) partials.
+        Reads are summed in order (as XLA's reduction does): a one-read
+        cluster sits right on the pi*N < 1 restart threshold, where a
+        one-ulp difference of another summation order flips the restart."""
+        g = gamma * self.read_mask[..., None]
+        return g.cumsum(dim=1)[:, -1], torch.bmm(g.transpose(1, 2),
+                                                 self.x_flat)
+
+    def m_step(self, denom, counts, step: int):
+        """pi, theta from the summed statistics, with the per-run
+        degenerate re-init from the step's draws."""
         theta = counts / torch.where(denom == 0, 1.0, denom)[..., None]
-        pi = denom / nt
+        pi = denom / self.nt
         # per-run degeneracy: any active slot with pi*N < 1 or NaN
-        bad_slot = ((pi * nt < 1) | torch.isnan(pi)) & slot_active
-        bad_run = (bad_slot.to(dtype) @ seg) > 0                  # (B, 9)
-        bad = bad_run[:, slot_run]                                # (B, R)
+        bad_slot = ((pi * self.nt < 1) | torch.isnan(pi)) & self.slot_active
+        bad_run = (bad_slot.to(pi.dtype) @ self.seg) > 0            # (B, 9)
+        bad = bad_run[:, self.slot_run]                             # (B, R)
         # Dirichlet(1) == normalized exponentials
-        e = -torch.log(u)
+        e = -torch.log(self.u[step])
         dirich = (e / e.sum(-1, keepdim=True)).reshape(R_TOTAL, -1)
-        pi = torch.where(bad, 1.0 / slot_k, pi)
+        pi = torch.where(bad, 1.0 / self.slot_k, pi)
         theta = torch.where(bad[..., None], dirich[None], theta)
         return pi, theta
 
-    def e_step(pi, theta):
+    def e_step(self, pi, theta):
         logt = torch.log(torch.clamp(theta, EPS, 1 - EPS))
-        M = torch.bmm(x_flat, logt.transpose(1, 2)) \
+        M = torch.bmm(self.x_flat, logt.transpose(1, 2)) \
             + torch.log(torch.clamp(pi, EPS, 1 - EPS))[:, None, :]
-        M = torch.where(slot_active[:, None, :], M, NEG_BIG)
+        M = torch.where(self.slot_active[:, None, :], M, NEG_BIG)
         # segment softmax with exact slice/gather segment max and
         # denominator (never one-hot products: see the e_step note in
         # svscope_tpu/models/mixture.py on the -1e30 sentinel)
         m_run = torch.stack(
             [M[:, :, int(RUN_OFF[r]):int(RUN_OFF[r]) + r + 1].amax(dim=2)
              for r in range(MAX_K)], dim=2)                       # (B, n, 9)
-        m_slot = m_run[:, :, slot_run]                            # (B, n, R)
+        m_slot = m_run[:, :, self.slot_run]                       # (B, n, R)
         a = torch.exp(torch.clamp(M - m_slot, -700.0, 700.0))
-        seg_sum = a @ seg                                         # (B, n, 9)
-        denom = seg_sum[:, :, slot_run]
+        seg_sum = a @ self.seg                                    # (B, n, 9)
+        denom = seg_sum[:, :, self.slot_run]
         gamma = a / denom
-        gamma = torch.where(slot_active[:, None, :], gamma, 0.0)
+        gamma = torch.where(self.slot_active[:, None, :], gamma, 0.0)
         return gamma, M
 
-    pi, theta = m_step(gamma0, uniforms[0])
-    gamma, _ = e_step(pi, theta)
-    lik = None
-    for s in range(1, nsteps + 1):
-        pi, theta = m_step(gamma, uniforms[s])
-        gamma, M = e_step(pi, theta)
-        lik_run = ((gamma * M) @ seg) * read_mask[..., None]      # (B, n, 9)
-        lik = lik_run.sum(dim=1)                                  # (B, 9)
-    ks = torch.arange(1, MAX_K + 1, dtype=dtype, device=dev)[None, :]
+    def lik_partial(self, gamma, M):
+        """This shard's expected complete log-lik per run, (B, 9)."""
+        lik_run = ((gamma * M) @ self.seg) * self.read_mask[..., None]
+        return lik_run.sum(dim=1)
+
+    def gamma_runs(self, gamma):
+        """Re-split segments into the (B, 9, n, 9) per-run gamma layout."""
+        B, n_loc, _ = gamma.shape
+        out = torch.zeros((B, MAX_K, n_loc, MAX_K), dtype=gamma.dtype,
+                          device=gamma.device)
+        for r in range(MAX_K):
+            o = int(RUN_OFF[r])
+            out[:, r, :, :r + 1] = gamma[:, :, o:o + r + 1]
+        return out
+
+
+def _em_folded_shards(shards: list, nf_true, zpn, nsteps: int,
+                      rsum=lambda parts: parts):
+    """The folded EM over read shards that step together: init M/E, then
+    nsteps x (M, E); each read sum is `rsum` of the shards' partials (the
+    identity for one shard).  Returns bics (B, 9) and per-shard gamma
+    (B, n_loc, 45)."""
+    gam = [s.gamma0 for s in shards]
+    for step in range(nsteps + 1):
+        parts = [s.m_partials(g) for s, g in zip(shards, gam)]
+        denom = rsum([p[0] for p in parts])
+        counts = rsum([p[1] for p in parts])
+        out = [s.e_step(*s.m_step(d, c, step))
+               for s, d, c in zip(shards, denom, counts)]
+        gam = [g for g, _M in out]
+    lik = rsum([s.lik_partial(g, M) for s, (g, M) in zip(shards, out)])[0]
+    s0 = shards[0]
+    dtype = lik.dtype
+    ks = torch.arange(1, MAX_K + 1, dtype=dtype, device=lik.device)[None, :]
     n_theta = (ks - 1) + ks * nf_true.to(dtype)[:, None] * (ALPHA - 1) \
         - zpn.to(dtype)[:, None]
-    bics = 2.0 * lik - n_theta * torch.log(nt)
-    # re-split segments into the (9, n, 9) per-run gamma layout
-    gam_runs = torch.zeros((B, MAX_K, n_pad, MAX_K), dtype=dtype, device=dev)
-    for r in range(MAX_K):
-        o = int(RUN_OFF[r])
-        gam_runs[:, r, :, :r + 1] = gamma[:, :, o:o + r + 1]
-    return bics, gam_runs
+    bics = 2.0 * lik - n_theta * torch.log(s0.nt)
+    return bics, gam
+
+
+def _em_folded_batch(codes, hard, n_k, n_true, nf_true, zpn, uniforms,
+                     nsteps: int = NSTEP):
+    """45-slot folded EM over a batch of windows, all reads on one device.
+    nf_true, zpn (B,) float.  Returns bics (B, 9) and per-run gamma
+    (B, 9, n_pad, 9)."""
+    shard = _FoldedShard(codes, hard, n_k, n_true, uniforms)
+    bics, gam = _em_folded_shards([shard], nf_true, zpn, nsteps)
+    return bics, shard.gamma_runs(gam[0])
 
 
 def _em_folded_batch_light(codes, hard, n_k, n_true, nf_true, zpn, uniforms,
@@ -341,6 +389,77 @@ def _em_folded_batch_light(codes, hard, n_k, n_true, nf_true, zpn, uniforms,
     bics, gam_runs = _em_folded_batch(codes, hard, n_k, n_true, nf_true, zpn,
                                       uniforms, nsteps)
     return bics, torch.argmax(gam_runs, dim=3).to(torch.int8)
+
+
+def _draws(uniforms, seed, attempt, nf_pad, nsteps, dtype, device):
+    """The M-step's (nsteps + 1, 45, nf_pad, 5) draws on `device`."""
+    u = uniforms(seed, attempt, nf_pad, nsteps, dtype, device)
+    if tuple(u.shape) != (nsteps + 1, R_TOTAL, nf_pad, ALPHA):
+        raise ValueError(f"uniforms shape {tuple(u.shape)}, expected "
+                         f"{(nsteps + 1, R_TOTAL, nf_pad, ALPHA)}")
+    return u.to(device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# Read-parallel (mp) EM for oversized windows (svscope_tpu/models/
+# mixture.py:538-620).  Selection caps windows at 3..500 spanning reads
+# (src/WindowSelection_v8.py:600,614); windows past MP_READ_THRESHOLD
+# scatter their READ axis over the installed data mesh: the E-step is
+# read-independent given theta, and the three read reductions (denominator,
+# counts, log-lik) become cross-device sums.
+# ---------------------------------------------------------------------------
+
+MP_READ_THRESHOLD = 256
+LAST_MP_DISPATCH = {"used": False, "n_shards": 1, "n_windows": 0}
+
+
+def _mp_route(feats, mesh) -> set[int]:
+    """Indices of windows to run read-parallel: above the threshold AND
+    their padded read axis divides the mesh."""
+    nsh = len(mesh)
+    if nsh <= 1:
+        return set()
+    return {i for i, x in enumerate(feats)
+            if (n := int(np.asarray(x).shape[0])) > MP_READ_THRESHOLD
+            and _bucket(n, READS_LADDER) % nsh == 0}
+
+
+def _mp_dispatch_one(x, mesh, max_c: int, seed: int, attempt: int,
+                     dtype: torch.dtype, nsteps: int, labels_only: bool,
+                     device, uniforms):
+    """Host prep + read-sharded EM of ONE oversized window, every shard
+    launched before any result is fetched.  Returns (n_k, bics (1, 9) on
+    the first shard's device, per-shard outputs: int8 labels (1, 9, n_loc)
+    or gamma (1, 9, n_loc, 9))."""
+    x = np.asarray(x)
+    n, nf = x.shape
+    n_pad = _bucket(n, READS_LADDER)
+    nf_pad = _bucket(nf)
+    n_k = max(min(max_c + 1, n) - 1, 1)
+    kmin = min(n_k, MAX_K)
+    codes = np.full((1, n_pad, nf_pad), PAD_CODE, np.int8)
+    codes[0, :n, :nf] = x
+    hard = np.zeros((1, MAX_K, n_pad), np.int8)
+    hard[0, :kmin, :n] = ward_cut_many([pairwise_identity(x)], MAX_K)[0][:kmin]
+    u = _draws(uniforms, seed, attempt, nf_pad, nsteps, dtype, device)
+    n_loc = n_pad // len(mesh)
+    shards = []
+    for k, dev in enumerate(mesh):
+        lo = k * n_loc
+        arrs = (codes[:, lo:lo + n_loc], hard[:, :, lo:lo + n_loc],
+                np.array([n_k], np.int32), np.array([n], np.int32))
+        shards.append(_FoldedShard(
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in arrs), u.to(dev), read_off=lo))
+    s0dev = mesh[0]
+    bics, gam = _em_folded_shards(
+        shards, torch.tensor([float(nf)], dtype=dtype, device=s0dev),
+        torch.tensor([float(zero_param_count(x))], dtype=dtype,
+                     device=s0dev), nsteps, rsum=cross_sum)
+    outs = [s.gamma_runs(g) for s, g in zip(shards, gam)]
+    if labels_only:
+        outs = [torch.argmax(o, dim=3).to(torch.int8) for o in outs]
+    return n_k, bics, outs
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +473,19 @@ def _raw_em_dispatch(feats: list[np.ndarray], max_c: int, seed: int,
     producing raw per-window tuples (bics (MAX_K,), per-K output — int8
     labels (MAX_K, N) or gamma (MAX_K, N, MAX_K) —, n_k)."""
     results: list = [None] * len(feats)
+    mesh = data_mesh()
+    mp_idx = _mp_route(feats, mesh) if mesh is not None else set()
+    mp_pending = [(i, *_mp_dispatch_one(feats[i], mesh, max_c, seed, attempt,
+                                        dtype, nsteps, labels_only, device,
+                                        uniforms))
+                  for i in sorted(mp_idx)]
+    LAST_MP_DISPATCH.update(used=bool(mp_pending),
+                            n_shards=len(mesh) if mp_pending else 1,
+                            n_windows=len(mp_pending))
     groups: dict[tuple[int, int], list[int]] = {}
     for i, x in enumerate(feats):
+        if i in mp_idx:
+            continue
         key = (_bucket(x.shape[0], READS_LADDER), _bucket(x.shape[1]))
         groups.setdefault(key, []).append(i)
     chunks = []
@@ -412,25 +542,31 @@ def _raw_em_dispatch(feats: list[np.ndarray], max_c: int, seed: int,
             ns[len(idxs):] = ns[0]
             nfs[len(idxs):] = nfs[0]
             zps[len(idxs):] = zps[0]
-        u = uniforms(seed, attempt, nf_pad, nsteps, dtype, device)
-        if tuple(u.shape) != (nsteps + 1, R_TOTAL, nf_pad, ALPHA):
-            raise ValueError(f"uniforms shape {tuple(u.shape)}, expected "
-                             f"{(nsteps + 1, R_TOTAL, nf_pad, ALPHA)}")
-        u = u.to(device=device, dtype=dtype)
-        t = lambda a: torch.from_numpy(a).to(device)
+        u = _draws(uniforms, seed, attempt, nf_pad, nsteps, dtype, device)
         kernel = _em_folded_batch_light if labels_only else _em_folded_batch
-        bics_b, out_b = kernel(t(codes), t(hard_b), t(nks), t(ns),
-                               t(nfs.astype(np_dtype)),
-                               t(zps.astype(np_dtype)), u, nsteps)
-        pending.append((idxs, nks, bics_b, out_b))
+        # with a data mesh installed (parallel/dataparallel) the window axis
+        # is split over its devices: every chunk is launched before any is
+        # fetched, and windows are independent
+        outs = []
+        for dev, arrs in shard_batch((codes, hard_b, nks, ns,
+                                      nfs.astype(np_dtype),
+                                      zps.astype(np_dtype)), device=device):
+            outs.append(kernel(*(torch.from_numpy(a).to(dev) for a in arrs),
+                               u.to(dev), nsteps))
+        pending.append((idxs, nks, outs))
 
     def fetch():
-        for idxs, nks, bics_b, out_b in pending:
-            bics_h = bics_b.cpu().numpy()
-            out_h = out_b.cpu().numpy()
+        for idxs, nks, outs in pending:
+            bics_h = np.concatenate([b.cpu().numpy() for b, _ in outs])
+            out_h = np.concatenate([o.cpu().numpy() for _, o in outs])
             for bi, i in enumerate(idxs):
                 results[i] = (np.array(bics_h[bi], np.float64),
                               np.array(out_h[bi]), int(nks[bi]))
+        for i, n_k, bics_d, outs in mp_pending:
+            results[i] = (bics_d.cpu().numpy().astype(np.float64)[0],
+                          np.concatenate([o.cpu().numpy() for o in outs],
+                                         axis=-2 if not labels_only
+                                         else -1)[0], n_k)
         return results
 
     return fetch

@@ -13,7 +13,13 @@ Three execution modes, identical results:
     (ops/poa_fused.fused_msa_batch, kernels K3 and K4/K5).
 
 Windows past the largest bucket, or with a node of in-degree > 8, align
-that round on the host (`add_sequence`), as in the JAX package.
+that round on the host (`add_sequence`), as in the JAX package.  With an
+oversize device tuple set (`set_default_oversize_mesh`, the CLI's
+--oversize-sharded, or `oversize_mesh=`), every mode sends them through
+the column-sharded wavefront (ops/poa_sharded) instead: host and fused
+mode the windows whose reads pass L_LADDER[-1], per-round mode each round
+past the buckets.  With a data mesh installed (parallel/dataparallel),
+each per-round batch is split over its devices.
 """
 from __future__ import annotations
 
@@ -24,6 +30,7 @@ import numpy as np
 
 from ..native.poa import (NativePoaGraph, native_available,
                           poa_msa_batch_native, poa_native)
+from ..parallel.dataparallel import shard_batch
 from . import poa_align
 from .poa_fused import fused_msa_batch
 from .poa_device import MAX_PREDS, to_torch_packed, unpack_alignment_arrays
@@ -39,6 +46,17 @@ HOST_THREADS = min(8, os.cpu_count() or 1)
 # into sub-batches; the largest bucket (B=256, N=L=2048, ~5.4 GB) runs as
 # two calls of 204 and 52 windows.
 PLANE_BUDGET_BYTES = 4 << 30
+
+_DEFAULT_OVERSIZE = None   # device tuple of the oversize wavefront
+
+
+def set_default_oversize_mesh(mesh) -> None:
+    """Route over-bucket windows of every poa_msa_batch call through the
+    sharded wavefront over the device tuple `mesh` (None: off; CLI
+    --oversize-sharded)."""
+    global _DEFAULT_OVERSIZE
+    _DEFAULT_OVERSIZE = None if mesh is None else tuple(mesh)
+
 
 class _Graph(NativePoaGraph):
     """C++ POA graph that also fuses an alignment given as int32 arrays.
@@ -76,7 +94,8 @@ def _require_native():
 
 
 def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
-                  threads: int | None = None, device="cuda"):
+                  threads: int | None = None, device="cuda",
+                  oversize_mesh=None):
     """spoa-equivalent poa(seqs, 1) over many windows.
 
     use_device: False/"host" = host C++ engine; True/"pallas"/"xla" =
@@ -85,16 +104,31 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
     the CPU); "fused" = the whole build on `device`
     (ops/poa_fused.fused_msa_batch).  `device` defaults to cuda (raises
     when CUDA is absent).
+    oversize_mesh: a device tuple; windows past the largest (nodes,
+    length) bucket align through the column-sharded wavefront over it
+    (default: the one `set_default_oversize_mesh` set, else none).
     Returns [(consensus, msa_rows)] per window."""
     device = resolve_device(device)
     _require_native()
-    if not use_device or use_device == "host":
-        if len(seq_lists) > 1:
-            return poa_msa_batch_native(seq_lists,
-                                        threads=threads or HOST_THREADS)
-        return [poa_native(s) for s in seq_lists]
-    if use_device == "fused":
-        return fused_msa_batch(seq_lists, device=device)
+    if oversize_mesh is None:
+        oversize_mesh = _DEFAULT_OVERSIZE
+    if not use_device or use_device == "host" or use_device == "fused":
+        # giant windows go to the wavefront in host and fused mode too
+        big = set()
+        if oversize_mesh is not None:
+            big = {i for i, s in enumerate(seq_lists)
+                   if s and max(map(len, s)) > L_LADDER[-1]}
+        small = [s for i, s in enumerate(seq_lists) if i not in big]
+        if use_device == "fused":
+            res = fused_msa_batch(small, device=device) if small else []
+        elif len(small) > 1:
+            res = poa_msa_batch_native(small,
+                                       threads=threads or HOST_THREADS)
+        else:
+            res = [poa_native(s) for s in small]
+        res = iter(res)
+        return [_oversize_msa(s, oversize_mesh) if i in big else next(res)
+                for i, s in enumerate(seq_lists)]
     if use_device not in (True, "pallas", "xla"):
         raise ValueError(f"unknown device POA engine {use_device!r}")
     graphs = [_Graph() for _ in seq_lists]
@@ -112,8 +146,34 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
                 continue
             items.append((w, seq))
         if items:
-            _device_round(graphs, items, host_only, device)
+            _device_round(graphs, items, host_only, device, oversize_mesh)
     return [(g.consensus(), g.msa()) for g in graphs]
+
+
+def _oversize_msa(seqs: list[str], mesh):
+    """One giant window's full MSA with every alignment round on the
+    sharded wavefront (host C++ graph fusion between rounds)."""
+    g = _Graph()
+    for seq in seqs:
+        if len(seq) == 0 or g.n_nodes() == 0:
+            g.add_sequence(seq)
+        elif not _oversize_sharded(g, seq, mesh):
+            g.add_sequence(seq)          # in-degree > 8: host DP round
+    return g.consensus(), g.msa()
+
+
+def _oversize_sharded(g, seq: str, mesh) -> bool:
+    """Align one over-bucket (graph, read) via the sharded wavefront and
+    fuse; returns False if the graph can't be packed (in-degree > 8)."""
+    from .poa_sharded import align_sharded_packed
+    n = g.n_nodes()
+    n_max = max(N_LADDER[-1], 1 << (max(n, 2) - 1).bit_length())
+    packed = g.pack(n_max, MAX_PREDS)
+    if packed is None:
+        return False
+    aln, _score = align_sharded_packed(*packed, seq, mesh)
+    g.fuse(aln, seq)
+    return True
 
 
 def _split_batch(b_pad: int, nb: int, lb: int) -> int:
@@ -122,7 +182,7 @@ def _split_batch(b_pad: int, nb: int, lb: int) -> int:
     return max(1, min(b_pad, PLANE_BUDGET_BYTES // per))
 
 
-def _device_round(graphs, items, host_only, device):
+def _device_round(graphs, items, host_only, device, oversize_mesh=None):
     """One round: bucket (window, seq) pairs, device-align, C++ fuse."""
     buckets: dict[tuple[int, int], list] = {}
     for w, seq in items:
@@ -133,6 +193,9 @@ def _device_round(graphs, items, host_only, device):
         if nb is not None and lb is not None:
             packed = g.pack(nb, MAX_PREDS)
         if packed is None:
+            if oversize_mesh is not None and _oversize_sharded(
+                    g, seq, oversize_mesh):
+                continue
             host_only[w] = True
             g.add_sequence(seq)
             continue
@@ -158,18 +221,20 @@ def _device_round(graphs, items, host_only, device):
                 nn[len(chunk):] = nn[0]
                 seqs[len(chunk):] = seqs[0]
                 lens[len(chunk):] = lens[0]
-            step = _split_batch(b_pad, nb, lb)
+            # the batch axis splits over the installed data mesh (windows
+            # independent); the plane budget then applies per device, and
+            # every sub-batch is launched before any is fetched
             outs = []
-            for s0 in range(0, b_pad, step):
-                sl = slice(s0, min(s0 + step, b_pad))
-                args = to_torch_packed(chars[sl], preds[sl], sinks[sl],
-                                       nn[sl], seqs[sl], lens[sl], device)
-                an, asp, ke, _sc = poa_align.align_batch(*args, lb)
-                outs.append((an.cpu().numpy(), asp.cpu().numpy(),
-                             ke.cpu().numpy()))
-            an = np.concatenate([o[0] for o in outs])
-            asp = np.concatenate([o[1] for o in outs])
-            ke = np.concatenate([o[2] for o in outs])
+            for dev, arrs in shard_batch((chars, preds, sinks, nn, seqs,
+                                          lens), device=device):
+                b_dev = arrs[0].shape[0]
+                step = _split_batch(b_dev, nb, lb)
+                for s0 in range(0, b_dev, step):
+                    args = to_torch_packed(*(a[s0:s0 + step] for a in arrs),
+                                           dev)
+                    outs.append(poa_align.align_batch(*args, lb)[:3])
+            an, asp, ke = (np.concatenate([o[k].cpu().numpy() for o in outs])
+                           for k in range(3))
             for bi, (w, seq, (c, p, s, n, nor)) in enumerate(chunk):
                 nodes, spos = unpack_alignment_arrays(an[bi], asp[bi],
                                                       ke[bi], nor)

@@ -25,9 +25,14 @@ JAX package: a graph that outgrows its node bucket, gets a node with more
 than 8 in-edges or a cycle (the overflow flag), a non-ACGTN base, or a
 window past the bucket ladders.  `COUNTS["fallbacks"]` counts them.
 
+With a data mesh installed (parallel/dataparallel), each bucket chunk's
+window axis is split over the mesh's devices, each part built on its
+device (the mesh branch of the JAX package's `_dispatch_build`, without
+its 8-window grid rule: the port's kernels have no such grid).
+
 Not ported (the JAX package's XLA engines and TPU plumbing): the non-pk
 XLA build (`_build_batch_impl`, `_fuse_alignment`), the per-round Pallas
-engine (`_pallas_align_round`), the mesh branch of `_dispatch_build`, the
+engine (`_pallas_align_round`), the downgrade to an `xla` engine, the
 probe knobs, the 64-window chunk cap and the 8-window batch padding.
 """
 from __future__ import annotations
@@ -39,6 +44,7 @@ import time
 import numpy as np
 import torch
 
+from ..parallel.dataparallel import shard_batch
 from .poa_device import MAX_PREDS
 from .poa_fused_kernel import ALPHA5, GraphState, align_tb, fusion
 from ..utils.device import resolve_device
@@ -299,12 +305,13 @@ def consensus_walk(ch, pn, pw, pt, nn, order):
 # --------------------------------------------------------------- build ----
 
 def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cuda",
-                   round_hook=None, timing=None) -> dict:
+                   round_hook=None, timing=None, fetch: bool = True) -> dict:
     """Whole MSA build of a window batch on `device`.
 
     seqs (B, R, l_max) uint8 base codes, lens (B, R), n_seqs (B,): numpy.
-    Returns numpy arrays: ch, gm, nn, path (B, R, l_max), order,
-    back_buf, back_start, fwd_buf, fwd_cnt, overflow (B,) bool.
+    Returns numpy arrays (with fetch=False: the tensors on `device`, not
+    yet fetched): ch, gm, nn, path (B, R, l_max), order, back_buf,
+    back_start, fwd_buf, fwd_cnt, overflow (B,) bool.
 
     round_hook(r, ops, state, an, asx, ke), when given, is called after
     K3 and before the fusion of round r (it sees the real operands of
@@ -340,6 +347,12 @@ def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cuda",
     out = {"ch": st.ch, "gm": st.gm, "nn": st.nn, "path": path,
            "order": order, "back_buf": walk[0], "back_start": walk[1],
            "fwd_buf": walk[2], "fwd_cnt": walk[3], "overflow": overflow}
+    return fetch_build(out, timing, dev) if fetch else out
+
+
+def fetch_build(out: dict, timing=None, device="cuda") -> dict:
+    """build_batch_pk's tensors copied to numpy (phase "download")."""
+    ph = _Phases(timing, device)
     out = {k: v.cpu().numpy() for k, v in out.items()}
     ph.mark("download")
     return out
@@ -457,8 +470,16 @@ def fused_msa_batch(seq_lists: list[list[str]], device="cuda",
         for off in range(0, len(idxs), bcap):
             chunk = idxs[off:off + bcap]
             seqs_a, lens_a, nseq_a = chunk_arrays(chunk, encoded, rb, lb)
-            res = build_batch_pk(seqs_a, lens_a, nseq_a, ncap=ncap,
-                                 device=device, timing=timing)
+            # the window axis splits over the installed data mesh (a chunk
+            # it does not divide runs whole on its first device); every
+            # part is built before any is fetched
+            parts = [(dev, build_batch_pk(*arrs, ncap=ncap, device=dev,
+                                          timing=timing, fetch=False))
+                     for dev, arrs in shard_batch((seqs_a, lens_a, nseq_a),
+                                                  device=device)]
+            parts = [fetch_build(p, timing, dev) for dev, p in parts]
+            res = {k: np.concatenate([p[k] for p in parts])
+                   for k in parts[0]}
             _count("chunks")
             _count("windows", len(chunk))
             for bi, wi in enumerate(chunk):

@@ -77,16 +77,35 @@ def test_cli_local_graph_byte_identical(pair_and_jax_bed, tmp_path):
     assert (out_dir / "S.vs.S.TandemRepeat.Raw.bed").read_bytes() == want
 
 
-def test_cli_unported_options_raise(pair_and_jax_bed, tmp_path):
+def test_cli_oversize_sharded_matches_unsharded(pair_and_jax_bed, tmp_path,
+                                                monkeypatch):
+    """`--oversize-sharded` (ported since the scale-out slice; it raised
+    before) gives the Raw.bed of the run without it, here with the length
+    ladder shrunk so that every alignment round of the pair's windows goes
+    through the wavefront on the CPU; the flag's device tuple is cleared
+    when the command ends."""
     from svscope_tpu_torch import cli
-    (ref, tumor, normal, recs), _ = pair_and_jax_bed
+    from svscope_tpu_torch.ops import poa_batch as pb
+    (ref, tumor, normal, recs), want = pair_and_jax_bed
     bed = tmp_path / "windows.bed"
-    bed.write_text(recs[0] + "\n")
+    bed.write_text("".join(r + "\n" for r in recs))
     base = ["localGraph", "--device", "cpu", "-w", str(bed), "-T", tumor,
             "-N", normal, "-t", "S", "-n", "S", "-r", ref, "-s",
             str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError):
-        cli.main(base + ["--oversize-sharded"])
+    monkeypatch.setattr(pb, "L_LADDER", (64,))
+    calls = {"n": 0}
+    real = pb._oversize_sharded
+
+    def counting(g, seq, mesh):
+        assert mesh == (torch.device("cpu"),)
+        calls["n"] += 1
+        return real(g, seq, mesh)
+
+    monkeypatch.setattr(pb, "_oversize_sharded", counting)
+    out = cli.main(base + ["--oversize-sharded"])
+    assert calls["n"] > 0 and pb._DEFAULT_OVERSIZE is None
+    with open(out, "rb") as f:
+        assert f.read() == want
 
 
 def test_port_never_imports_jax():

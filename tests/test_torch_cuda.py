@@ -500,3 +500,56 @@ def test_int16_probe_rejects_widths_off_8(dev):
     with pytest.raises(ValueError):
         ip.int16_op_cuda("max16", off, off, off)
     assert ip.LAUNCHES == before
+
+
+# -- the scale-out on the card: a two-shard tuple of the one GPU ----------
+
+def test_dp_split_launches_each_shard(dev):
+    """process_window_batch under ("cuda:0", "cuda:0"): records == the
+    unsharded run's, the last dispatch split in 2, K1 launched per shard;
+    the fused build too (K3 and K4)."""
+    from svscope_tpu_torch.parallel import dataparallel as dpm
+    wins = tw.make_window_payloads(16, np.random.default_rng(0))
+    for engine, kernels in (("pallas", ("K1",)), ("fused", ("K3", "K4"))):
+        base = process_window_batch(wins, device=dev, device_poa=engine)
+        poa_align.reset_launches()
+        tpk.reset_launches()
+        with dpm.data_mesh_installed((dev, dev)):
+            got = process_window_batch(wins, device=dev, device_poa=engine)
+            assert dpm.LAST_DISPATCH == {"sharded": True, "n_shards": 2}
+        launches = {"K1": poa_align.LAUNCHES, **tpk.LAUNCHES}
+        assert got == base, engine
+        assert all(launches[k] > 0 for k in kernels), launches
+
+
+def test_mp_em_on_card_matches_batched(dev):
+    from svscope_tpu_torch.models import mixture as mx
+    from svscope_tpu_torch.parallel import dataparallel as dpm
+    rng = np.random.default_rng(7)
+    a = rng.integers(0, 4, (1, 32))
+    b = (a + 1 + rng.integers(0, 3, (1, 32))) % 4
+    x = np.concatenate([np.repeat(a, 150, 0), np.repeat(b, 150, 0)])
+    x = np.where(rng.random(x.shape) < 0.03, rng.integers(0, 5, x.shape),
+                 x).astype(np.int8)
+    base = mx.em_cluster_batch_dispatch([x], labels_only=True, device=dev)()
+    with dpm.data_mesh_installed((dev, dev)):
+        got = mx.em_cluster_batch_dispatch([x], labels_only=True,
+                                           device=dev)()
+        assert mx.LAST_MP_DISPATCH["used"]
+    assert got[0][0] == base[0][0] and (got[0][2] == base[0][2]).all()
+
+
+@pytest.mark.parametrize("traceback", ["full", "banded"])
+def test_sharded_wavefront_on_card_matches_engine(dev, traceback):
+    from svscope_tpu_torch.native.poa import NativePoaGraph
+    from svscope_tpu_torch.ops import poa_sharded as ps
+    reads = chip_smoke.oversize_window(np.random.default_rng(3), 48, 700, 4)
+    g = NativePoaGraph()
+    for r in reads[:3]:
+        g.add_sequence(r)
+    packed = g.pack(1024, ps.MAX_PREDS)
+    for shards in (1, 2, 3):
+        got, _ = ps.align_sharded_packed(*packed, reads[3], (dev,) * shards,
+                                         traceback=traceback,
+                                         tb_block=(64, 64))
+        assert got == g.align_only(reads[3]), shards

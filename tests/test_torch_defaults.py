@@ -8,10 +8,12 @@ import numpy as np
 import pytest
 import torch
 
-from svscope_tpu_torch import cli
+from svscope_tpu_torch import cli, graft_entry
+from svscope_tpu_torch.engine import localgraph
 from svscope_tpu_torch.engine.decision import decision
 from svscope_tpu_torch.models import mixture
 from svscope_tpu_torch.ops import poa_batch, poa_fused
+from svscope_tpu_torch.parallel import dataparallel, shard
 from svscope_tpu_torch.tools import workloads
 
 FEAT = np.random.default_rng(0).integers(0, 4, (8, 12)).astype(np.int8)
@@ -29,6 +31,14 @@ CALLS = {
         np.array([2]), ncap=16),
     "decision": lambda: decision(workloads.make_window_payloads(
         1, np.random.default_rng(0))[0]),
+    "make_dp_mesh": lambda: dataparallel.make_dp_mesh(),
+    "run_local_graph": lambda: localgraph.run_local_graph(
+        [], "ref.fa", [], [], ["S"], ["S"], "out", data_parallel=True),
+    "run_local_graph_sharded": lambda: shard.run_local_graph_sharded(
+        [], "ref.fa", [], [], ["S"], ["S"], "out", process_index=0,
+        process_count=1),
+    "graft_entry.entry": lambda: graft_entry.entry(),
+    "dryrun_multichip": lambda: graft_entry.dryrun_multichip(2),
 }
 
 

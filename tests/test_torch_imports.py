@@ -30,8 +30,9 @@ def _env():
 
 
 def test_port_and_smoke_import_nothing_of_jax_package():
-    """Every module of the port, chip_smoke.py and the card-side helpers,
-    with jax and svscope_tpu blocked, then a synth-pair AlnFeature run and
+    """Every module of the port (the scale-out's among them), chip_smoke.py
+    and the card-side helpers, with jax and svscope_tpu blocked, then the
+    scale-out dry run on two CPU devices, a synth-pair AlnFeature run and
     a DataPrepare --saveData + localGraph_npz replay; no
     `jax` or `svscope_tpu(.*)` module may be loaded, and no library under
     svscope_tpu/ may be mapped."""
@@ -46,6 +47,16 @@ def test_port_and_smoke_import_nothing_of_jax_package():
             svscope_tpu_torch.__path__, "svscope_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
+        scale_out = {"svscope_tpu_torch.parallel.dataparallel",
+                     "svscope_tpu_torch.parallel.mesh",
+                     "svscope_tpu_torch.parallel.shard",
+                     "svscope_tpu_torch.ops.poa_sharded",
+                     "svscope_tpu_torch.graft_entry",
+                     "svscope_tpu_torch.tools.dist_worker",
+                     "svscope_tpu_torch.tools.multihost_demo"}
+        assert scale_out <= set(names), scale_out - set(names)
+        from svscope_tpu_torch import graft_entry
+        graft_entry.dryrun_multichip(2, devices=("cpu", "cpu"))
         import chip_smoke, torch_workloads, localgraph_golden
         import alnfeature_golden as ag
         import dataprepare_golden as dg
