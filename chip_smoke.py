@@ -140,6 +140,24 @@ non-zero before the final line:
      graft_entry.entry() and dryrun_multichip(2) over the tuple;
      multi-process: two dist_worker processes on the card (gloo rendezvous
      on a file): merged Raw.bed == the single run == golden.
+ 23. genome-bench: svscope_tpu_torch.tools.genome_bench at 20 Mb (4 x 5
+     Mb, depth 12, nine planted classes: four truth tiers and five decoy
+     tiers, each built to die at one stage) on the cuda default POA (K1;
+     K2 for MisScore): every output file's hash (the BAMs included), the
+     tier table (n, candidate, Raw.bed, VCF per class), the candidate
+     count and the Raw.bed and VCF precision/recall equal the JAX golden
+     (tests/data/jax_genome_golden.json); stage walls and launches
+     printed.
+ 24. genome-bench-fused: the same at the golden's small configuration (2 x
+     1 Mb) with the fused POA (K3 and K4).
+ 25. tools: the port's measurement tools once each at their bench sizes,
+     tables printed: wgs_bench at 2 x 1 Mb (its background_stats frame's
+     hash == JAX's), roofline (native POA, K1 and its plain version, K2 on
+     misscore4096 against the bound of tools/bounds.py, the batched EM),
+     engine_ab (one engine source built twice: byte-identical, timed in
+     turns), stage_probe, pipeline_probe, pk_phase_probe, e2e_probe
+     (records == the localGraph golden) and fused_probe (MSAs == the host
+     engine's).
 
 With `--ab TREE ...` (source trees' roots, relative to this script; "."
 is this checkout), K1 at the k1-time and heavy shapes, K2 at every
@@ -156,8 +174,9 @@ Then one JSON line listing every kernel with its launches on the main path,
 error, times and bound (a probe's row: the sums over its variants, which
 it lists under "variants", with the library call's time where there is
 one; K1's, K2's, K3's and K4's rows add their launches per workload and
-new CLI path (launches_dataprepare, launches_chrom, ...), K1's the chrom
-run's stage walls, K1's and
+new CLI path (launches_dataprepare, launches_chrom, launches_genome_bench,
+...; launches_tools: the tools phase's, not in the totals), K1's the chrom
+and genome runs' stage walls, K1's and
 the pk kernels' the heavy shape as timed, K4's and K5's their single-call
 times, K4's its serial-walk windows per round checked, K2's its time per
 bucket launch; K1's, K3's and K4's their scale-out runs' launches), the card
@@ -173,6 +192,11 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+from svscope_tpu_torch.tools.bounds import (INT16X2_OPS_PER_S,
+                                            K2_OPS_PER_CELL, bound,
+                                            fusion_bound, k1_bound,
+                                            k2_bound, poa_ops, tensor_bytes)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((128, 64, 9), (512, 512, 64), (1024, 512, 256), (2048, 2048, 8))
@@ -226,26 +250,10 @@ PROBES = {
               "probe_int16.cu", "tools/probe/int16_mosaic_probe.py:58"),
 }
 K2_HOST_LARGE = 16                 # host-DP subsample past the 512 bucket
-# The bound of a kernel (the least time the card could take for the same
-# work) is max(bytes / memory rate, integer ops / int32 rate) for an H100
-# SXM at 700 W: HBM3 3.35 TB/s (data sheet); int32 64 lanes per SM (half
-# the 128 fp32 lanes behind the data sheet's 67 TFLOP/s) x 132 SMs x
-# 1.98 GHz = 16.7e12 ops/s.  Integer ops counted per DP cell: K2 11 (char
-# compare, score select, 3 adds, 2 max, 2 tie compares, M and A adds); K1
-# and K3 8 per (node, column) (score select, base, gap chain, direction)
-# plus 3 per (pred edge, column) (pred-row max, diag and up compares).
-# K1-int16's DP ops (max, add, compare, select on int16 values) run at the
-# packed s16x2 rate, two per int32 lane (VIMNMX.S16x2, the DPX
-# __viaddmax_s16x2 and __vimax3_s16x2 that the int16 probe checks).
 # The row probe's ops per (row, column): loop and store 1 (the add), pfx
 # and chmask 2 (add, scan max), row POA_OPS_PER_CELL.  The fusion-body and
 # int16 probes are counted by bytes only (a few ops per entry or element).
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
-INT16X2_OPS_PER_S = 2 * INT32_OPS_PER_S
-K2_OPS_PER_CELL = 11
-POA_OPS_PER_CELL = 8
-POA_OPS_PER_EDGE_CELL = 3
+# Every other bound comes from svscope_tpu_torch/tools/bounds.py.
 ROW_PROBE_OPS = {"loop": 1, "store": 1, "pfx": 2, "chmask": 2, "row": 8}
 
 
@@ -553,37 +561,6 @@ def k2_edge_pairs(bucket, seed):
     return pairs
 
 
-def bound(nbytes, ops, ops_per_s=INT32_OPS_PER_S):
-    """(bound_ms, bound_by): the larger of moving `nbytes` at the memory
-    rate and doing `ops` integer operations at `ops_per_s`."""
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / ops_per_s * 1e3
-    return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
-
-
-def tensor_bytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def poa_ops(preds, n_nodes, seq_lens, slot0_copies=False):
-    """Integer ops of a POA DP: POA_OPS_PER_CELL per (node, column) plus
-    POA_OPS_PER_EDGE_CELL per (pred edge, column), over each window's own
-    nodes and read.  preds (B, N, 8): -1 for an empty slot, or (pk layout,
-    slot0_copies) empty slots holding slot 0's value."""
-    import torch
-    preds = torch.as_tensor(preds).long().cpu()
-    n_nodes = torch.as_tensor(n_nodes).long().cpu().reshape(-1)
-    lens = torch.as_tensor(seq_lens).long().cpu().reshape(-1)
-    live = torch.arange(preds.shape[1])[None, :] < n_nodes[:, None]
-    edge = preds >= 0
-    if slot0_copies:
-        slot = torch.arange(preds.shape[2])
-        edge = torch.where(slot > 0, preds != preds[..., :1], edge)
-    edges = (edge & live[..., None]).sum((1, 2))
-    return int((n_nodes * lens).sum()) * POA_OPS_PER_CELL \
-        + int((edges * lens).sum()) * POA_OPS_PER_EDGE_CELL
-
-
 def cuda_ms(fn, reps, queued):
     """Mean ms of fn() over reps calls after a warm-up (CUDA events; with
     `queued` the calls are queued ahead of the device, tools/timing.py)."""
@@ -632,8 +609,7 @@ def k1_time(arrs, L, dev, name, t0):
     p_ms = cuda_ms(lambda: poa_device.align_batch_reference(*args, L), 3,
                    False)
     outs = poa_align.align_batch_cuda(*args, L)
-    bnd = bound(tensor_bytes(*args, *outs), poa_ops(arrs[1], arrs[3],
-                                                    arrs[5]))
+    bnd = k1_bound(args, outs)
     phase(name, t0, f"B={B} N={N} L={L} (nodes {int(arrs[3].min())}-"
           f"{int(arrs[3].max())}): kernel {k_ms:.4f} ms "
           f"({cells / k_ms / 1e6:.3f} GCUPS; calls queued ahead of the "
@@ -977,34 +953,6 @@ def fusion_args(cap):
     return an, asx, ke, ops[6], ops[3][:, 1:].contiguous(), st
 
 
-def fusion_bound(cap):
-    """K4's and K5's bound on one captured round (data-dependent: what this
-    round's in-place update must move): the window's entries (an, asx)
-    and ke read once, a base per valid entry, a column id and a gc lookup
-    per node entry, the pred row (32 bytes) of each valid entry that
-    creates no node; the state elements the round changes, the path
-    (B, l_max) and the counters written once.  Its integer work is a few
-    ops per entry, below the bytes' time."""
-    import torch
-    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
-    an, asx, ke, gminr, seq5, st = fusion_args(cap)
-    after = st.clone()
-    tpk.fusion_cuda(an, asx, ke, gminr, seq5, after)
-    torch.cuda.synchronize()
-    B, out_len = an.shape
-    live = torch.arange(out_len, device=an.device)[None, :] > \
-        ke.long()[:, None]
-    valid = live & (asx >= 0)
-    n_valid = int(valid.sum())
-    n_new = int((after.nn.long() - st.nn.long()).sum())
-    changed = sum(int((a != b).sum()) for a, b in
-                  zip(st.tensors(), after.tensors()))
-    nbytes = 8 * int(live.sum()) + 4 * B + 4 * n_valid \
-        + 8 * int((valid & (an >= 0)).sum()) + 32 * max(n_valid - n_new, 0) \
-        + 4 * changed + 4 * seq5.numel()
-    return bound(nbytes, 0), int(live.sum())
-
-
 def single_call_ms(setup, fn, dev, reps, hold):
     """Mean ms of fn(*setup()) over `reps` calls, each timed alone by CUDA
     events right after setup() made its fresh inputs (still in L2): with
@@ -1060,7 +1008,7 @@ def time_pk_kernels(bench_cap, heavy_cap, dev):
                       False))
         bounds["K3" + sfx] = k3_bound(cap)
         *fargs, st = fusion_args(cap)
-        fb, entries[sfx] = fusion_bound(cap)
+        fb, entries[sfx] = fusion_bound(*fusion_args(cap))
         for k, order, reps in (("K4", "lockstep", fuse_plain[0]),
                                ("K5", "seq", fuse_plain[1])):
             def setup(order=order):
@@ -1282,8 +1230,7 @@ def time_k2(pairs, groups, dev):
         p_tot += p_ms
         nbytes += tensor_bytes(*args) + 3 * 4 * len(sub)
         ops += cells * K2_OPS_PER_CELL
-        b_ms, b_by = bound(tensor_bytes(*args) + 12 * len(sub),
-                           cells * K2_OPS_PER_CELL)
+        b_ms, b_by = k2_bound(args, sub)
         per_bucket[bucket] = {"pairs": len(sub), "ms": k_ms,
                               "ms_issued": i_ms, "plain_ms": p_ms,
                               "bound_ms": b_ms, "gcups": cells / k_ms / 1e6}
@@ -1291,14 +1238,14 @@ def time_k2(pairs, groups, dev):
                     f"({cells / k_ms / 1e6:.3f} GCUPS; issued back to back "
                     f"{i_ms:.4f}) plain {p_ms:.4f} ms bound {b_ms:.4f} ms "
                     f"({b_by})")
-    k2_bound = bound(nbytes, ops)
+    all_bound = bound(nbytes, ops)
     phase("k2-time", t0, "misscore4096 per bucket (kernel calls queued ahead "
           "of the device): " + "; ".join(rows)
           + f"; all buckets kernel {k_tot:.4f} ms (issued back to back: "
           f"{i_tot:.4f}) plain {p_tot:.4f} ms bound "
-          f"{k2_bound[0]:.4f} ms ({k2_bound[1]}), "
+          f"{all_bound[0]:.4f} ms ({all_bound[1]}), "
           f"{ops / K2_OPS_PER_CELL / k_tot / 1e6:.3f} GCUPS")
-    return k_tot, p_tot, k2_bound, per_bucket
+    return k_tot, p_tot, all_bound, per_bucket
 
 
 def k2_main_path(name, fn):
@@ -1344,10 +1291,8 @@ def check_misscore_pipe(records, dev):
     launch = {}
     for k, pairs in sorted(groups.items()):
         args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(pairs, k)]
-        cells = sum(len(a) * len(b) for a, b in pairs)
         k_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, k), 20, True)
-        b_ms, b_by = bound(tensor_bytes(*args) + 12 * len(pairs),
-                           cells * K2_OPS_PER_CELL)
+        b_ms, b_by = k2_bound(args, pairs)
         launch[k] = {"pairs": len(pairs), "ms": k_ms, "bound_ms": b_ms,
                      "bound_by": b_by}
     phase("misscore-pipe", t0, f"{len(records)} records, {len(got)} "
@@ -2090,6 +2035,86 @@ def check_scale_out(golden, dev, bench_recs, heavy_recs):
     return runs
 
 
+def run_genome_bench(dev):
+    """Phases genome-bench and genome-bench-fused: the port's genome bench
+    (svscope_tpu_torch/tools/genome_bench.py) at the JAX golden's 20 Mb
+    configuration (4 x 5 Mb at depth 12) on the cuda default POA (K1; K2
+    for MisScore), then at the golden's small configuration (2 x 1 Mb)
+    with the fused POA (K3 and K4): every output file's hash, the
+    nine-class tier table, the candidate count and both precision/recall
+    pairs equal the JAX golden (tests/data/jax_genome_golden.json); each
+    run's launches counted from 0.  Returns {run: (result, launches)}."""
+    import genome_golden as gg
+    from svscope_tpu_torch.tools import genome_bench
+    g = gg.load_golden()
+    out = {}
+    for name, cfg, poa, need in (
+            ("genome-bench", g["full"], None, ("K1", "K2")),
+            ("genome-bench-fused", g["small"], "fused", ("K3", "K4", "K2"))):
+        t0 = time.perf_counter()
+        kw = {k: cfg[k] for k in gg.GENOME_FULL}
+        with tempfile.TemporaryDirectory() as d:
+            res, launches = path_launches(name, lambda: genome_bench.run(
+                **kw, device=dev, device_poa=poa, savedir=d,
+                log=lambda line: print("  " + line, flush=True)), need)
+        bad = gg.differences(res, cfg)
+        if bad:
+            raise RuntimeError(f"{name}: {bad} differ from the JAX golden")
+        sc = {k: res[k] for k in ("raw_bed", "vcf")}
+        phase(name, t0, f"{kw}: {res['candidates']} candidate windows, "
+              f"Raw.bed {sc['raw_bed']}, VCF {sc['vcf']} ([hit, of] "
+              f"precision, recall, decoys), tier table (n, candidate, "
+              f"Raw.bed, VCF) {res['tiers']}, {len(res['hashes'])} files "
+              "== JAX golden; stage walls " + ", ".join(
+                  f"{k} {v:.3f} s" for k, v in res["stages"].items())
+              + f"; launches {launches}")
+        out[name] = (res, launches)
+    return out
+
+
+def run_tools(dev, golden):
+    """Phase tools: the port's measurement tools once each at their bench
+    sizes, tables printed: wgs_bench at the golden's small configuration
+    (its frame's hash == JAX's), roofline, engine_ab (the engine source
+    twice: byte-identical), stage_probe, pipeline_probe, pk_phase_probe,
+    e2e_probe (records == the localGraph golden) and fused_probe (MSAs ==
+    the host engine's).  Returns the launches of the whole phase."""
+    import genome_golden as gg
+    from svscope_tpu_torch.tools import roofline, wgs_bench
+    from svscope_tpu_torch.tools.probe import (e2e_probe, engine_ab,
+                                               fused_probe, pipeline_probe,
+                                               pk_phase_probe, stage_probe)
+    t0 = time.perf_counter()
+    log = lambda line: print("  " + line, flush=True)
+    bench = golden["workloads"]["bench256"]["records"]
+
+    def tools():
+        want = gg.load_golden()["wgs_small"]
+        w = wgs_bench.run(**gg.WGS_SMALL, device=dev, log=log)
+        if (w["rows"], w["sha256"]) != (want["rows"], want["sha256"]):
+            raise RuntimeError("wgs_bench: background_stats differ from JAX")
+        roofline.run(dev, log=log)
+        if not engine_ab.run(device=dev, log=log)["identical"]:
+            raise RuntimeError("engine_ab: one source, two outputs")
+        stage_probe.run(trials=1, device=dev, log=log)
+        pipeline_probe.run(trials=1, device=dev, log=log)
+        pk_phase_probe.run(reps=3, device=dev, log=log)
+        e2e = e2e_probe.run(trials=1, device=dev, golden=bench, log=log)
+        bad = {k: r["golden"] for k, r in e2e.items()
+               if r["golden"] != len(bench)}
+        if bad:
+            raise RuntimeError(f"e2e_probe: golden records {bad}")
+        fp = fused_probe.run(trials=1, device=dev, log=log)
+        if fp["identical"] != len(bench):
+            raise RuntimeError(f"fused_probe: {fp['identical']} identical")
+
+    _, launches = path_launches("tools", tools, ("K1", "K2", "K3", "K4"))
+    phase("tools", t0, "wgs_bench (== JAX), roofline, engine_ab, "
+          "stage_probe, pipeline_probe, pk_phase_probe, e2e_probe, "
+          f"fused_probe; launches {launches}")
+    return launches
+
+
 AB_SNIPPET = """
 import inspect, json, sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -2300,8 +2325,8 @@ def main(argv=None):
     check_cli(golden, ("--device-poa", "fused"), "cli-fused")
 
     k2_err, k2_pairs, k2_groups = check_k2(dev)
-    k2_ms, k2_plain_ms, k2_bound, k2_buckets = time_k2(k2_pairs, k2_groups,
-                                                       dev)
+    k2_ms, k2_plain_ms, k2_bnd, k2_buckets = time_k2(k2_pairs, k2_groups,
+                                                     dev)
     # K2's launches on its main path: MisScore of a Raw.bed, then the two
     # CLI runs (each counted from 0 just before it).
     k2_launches, k2_launch = check_misscore_pipe(bench_recs + heavy_recs,
@@ -2330,6 +2355,13 @@ def main(argv=None):
     # processes; K1's, K3's and K4's launches of each run counted from 0
     scale = check_scale_out(golden, dev, bench_recs, heavy_recs)
     launches += sum(r["K1"] for r in scale.values())
+    # this slice: the genome bench at 20 Mb (K1, K2) and fused (K3, K4),
+    # then the measurement tools; launches of each run counted from 0
+    genome = run_genome_bench(dev)
+    tool_launches = run_tools(dev, golden)
+    for name, (_res, n) in genome.items():
+        launches += n["K1"]
+        k2_launches += n["K2"]
     if args.ab:
         run_ab(args.ab, k2_groups, k2_pairs, pk_ab)
 
@@ -2359,6 +2391,9 @@ def main(argv=None):
             k1[f"launches_{path.replace('-', '_')}"] = r["K1"]
     k1["launches_scale_out"] = {p: r["K1"] for p, r in scale.items()}
     k1["chrom_stage_s"] = chrom["stages"]
+    k1["launches_genome_bench"] = genome["genome-bench"][1]["K1"]
+    k1["genome_bench_stage_s"] = genome["genome-bench"][0]["stages"]
+    k1["launches_tools"] = tool_launches["K1"]
     k1["heavy_shape"] = {"B": 32, "N": 1024, "L": 512,
                          "ms": k1_heavy["ms"],
                          "plain_ms": k1_heavy["plain_ms"],
@@ -2380,6 +2415,10 @@ def main(argv=None):
             entry["launches_dataprepare_fused"] = fused_dp
             entry["launches_scale_out"] = {p: r[k] for p, r in scale.items()}
             entry["launches"] += sum(r[k] for r in scale.values())
+            fused_genome = genome["genome-bench-fused"][1][k]
+            entry["launches"] += fused_genome
+            entry["launches_genome_bench_fused"] = fused_genome
+            entry["launches_tools"] = tool_launches[k]
         # each pk kernel at the heavy capture, as timed
         entry["heavy_shape"] = {**heavy_shape, "round": PK_HEAVY_ROUND + 1,
                                 "ms": pk_ms[k + " heavy"][0],
@@ -2396,13 +2435,16 @@ def main(argv=None):
             entry["serial_walk_windows"] = serial_walks
         kernels.append(entry)
     k2 = row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches, k2_err, k2_ms,
-             k2_plain_ms, k2_bound)
+             k2_plain_ms, k2_bnd)
     # ms is misscore4096's six bucket launches; per launch at each bucket of
     # misscore4096 and of the main path (misscore-pipe)
     k2["misscore4096_buckets"] = k2_buckets
     k2["main_path_launch"] = k2_launch
     for path in ("dataprepare", "dataprepare-fused", "chrom"):
         k2[f"launches_{path.replace('-', '_')}"] = new_paths[path]["K2"]
+    for path, (_res, n) in genome.items():
+        k2[f"launches_{path.replace('-', '_')}"] = n["K2"]
+    k2["launches_tools"] = tool_launches["K2"]
     kernels.append(k2)
     for k, (name, src, replaces) in PROBES.items():
         p = probes[k]

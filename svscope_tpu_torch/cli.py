@@ -73,18 +73,15 @@ def cmd_local_graph(args):
 
 
 def _load_tables(args):
+    """AlnFeature's tables from the native scanner (the Python parser's
+    table, tested).  A failing native scan raises: the Python scan would
+    give the same tables and so hide it."""
     from .io.bam import AlignmentTable
-
-    def load(path):
-        try:  # native scanner (22x the Python parser); same table (tested)
-            from .native.bam import scan_alignment_table
-            return scan_alignment_table(path)
-        except Exception as exc:
-            log.warning("native BAM scan failed (%s); Python fallback", exc)
-            return AlignmentTable.from_bam(path)
-
-    t = AlignmentTable.concat([load(p) for p in args.Tumorbam.split(",")])
-    n = AlignmentTable.concat([load(p) for p in args.Normalbam.split(",")])
+    from .native.bam import scan_alignment_table
+    t = AlignmentTable.concat([scan_alignment_table(p)
+                               for p in args.Tumorbam.split(",")])
+    n = AlignmentTable.concat([scan_alignment_table(p)
+                               for p in args.Normalbam.split(",")])
     return t, n
 
 

@@ -30,7 +30,6 @@ import time
 import numpy as np
 import torch
 
-from ..io.bam import BamReader
 from ..io.fasta import FastaFile
 from ..models.mixture import em_cluster_batch_dispatch
 from ..ops.poa_batch import poa_msa_batch
@@ -54,14 +53,11 @@ def resolve_device_poa(device_poa, device: torch.device):
 
 def open_bam(path: str):
     """Lazy native-backed BAM reader (columns in C++, sequences decoded per
-    fetch); the pure-Python reader when the native one cannot open it."""
-    try:
-        from ..native.bam import LazyBamReader
-        return LazyBamReader(path)
-    except Exception as exc:
-        log.warning("native lazy BAM reader failed (%s); Python reader",
-                    exc)
-        return BamReader(path)
+    fetch).  A failing native reader raises: the pure-Python BamReader
+    (the parity oracle of the tests) would fetch the same reads and so
+    hide it."""
+    from ..native.bam import LazyBamReader
+    return LazyBamReader(path)
 
 
 def raw_bed_name(t_ids: list[str], n_ids: list[str]) -> str:

@@ -19,27 +19,6 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-_available = None
-
-
-def native_available() -> bool:
-    """True when the C++ engine can load (or build) on this host.
-
-    False on a wheel install whose prebuilt .so is ISA-gated off with no
-    source tree / toolchain to rebuild from — callers (ops/poa_batch)
-    then fall back to the NumPy oracle, mirroring hcluster's policy.
-    The probe result is memoized: a failed load would otherwise re-run
-    the build attempt on every batch."""
-    global _available
-    if _available is None:
-        try:
-            lib()
-            _available = True
-        except Exception:
-            _available = False
-    return _available
-
-
 def lib():
     """Thread-safe lazy CDLL load.
 

@@ -25,11 +25,13 @@ from __future__ import annotations
 
 import ctypes
 import os
+import subprocess
 
 import numpy as np
 
-from ..native.poa import (NativePoaGraph, native_available,
-                          poa_msa_batch_native, poa_native)
+from ..native.poa import NativePoaGraph
+from ..native.poa import lib as native_lib
+from ..native.poa import poa_msa_batch_native, poa_native
 from ..parallel.dataparallel import shard_batch
 from . import poa_align
 from .poa_fused import fused_msa_batch
@@ -82,15 +84,13 @@ def _bucket(x, ladder):
 
 
 def _require_native():
-    if not native_available():
-        from ..native.poa import lib
-        try:
-            lib()
-        except Exception as exc:           # report the loader's own cause
-            raise RuntimeError("native C++ POA engine (csrc/host/poa_engine.cpp) "
-                               f"cannot load: {exc!r}") from exc
+    """Load (or build) the C++ POA engine; its failure raises with the
+    loader's own cause (no Python fallback)."""
+    try:
+        native_lib()
+    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
         raise RuntimeError("native C++ POA engine (csrc/host/poa_engine.cpp) "
-                           "cannot load")
+                           f"cannot load: {exc!r}") from exc
 
 
 def poa_msa_batch(seq_lists: list[list[str]], use_device=False,

@@ -156,24 +156,18 @@ def fetch_span_reads(table: AlignmentTable, chrom: str, start: int, end: int,
     with their on-read window length.  Returns DataFrame(read -> Length).
 
     The per-record window-boundary walk runs as one native batch call
-    (span_sites_batch) when the C++ scanner is available; the Python walk
-    is the fallback and the parity oracle (tested)."""
+    (span_sites_batch), whose failure raises; the Python walk
+    (_read_span_sites) is the tests' parity oracle, not a fallback."""
+    from ..native.bam import span_sites
     idx = table.fetch_idx(chrom, start, end)
     idx = idx[table.mapq[idx] >= mapq_cutoff] if len(idx) else idx
     if len(idx) == 0:
         return pd.DataFrame({"Length": pd.Series({}, dtype=np.int64)})
     starts = table.start[idx].astype(np.int64)
-    try:
-        from ..native.bam import span_sites
-        blob, off = table.cig_arrays()
-        s5s, s3s = span_sites(blob, off[idx], off[idx + 1] - off[idx],
-                              starts, np.full(len(idx), start, np.int64),
-                              np.full(len(idx), end, np.int64))
-    except Exception:
-        pairs = [_read_span_sites(table.cigar[i], int(table.start[i]),
-                                  start, end) for i in idx]
-        s5s = np.array([p[0] for p in pairs], np.int64)
-        s3s = np.array([p[1] for p in pairs], np.int64)
+    blob, off = table.cig_arrays()
+    s5s, s3s = span_sites(blob, off[idx], off[idx + 1] - off[idx],
+                          starts, np.full(len(idx), start, np.int64),
+                          np.full(len(idx), end, np.int64))
     uniq, inv = np.unique(table.name[idx], return_inverse=True)
     ng = len(uniq)
     big = np.iinfo(np.int64).max

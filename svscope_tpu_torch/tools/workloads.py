@@ -1,6 +1,6 @@
 """Inputs of the kernel measurement tools and of the chromosome bench: the
-bench workload's windows, one device round of K1 replayed from them, and
-the synthetic tumor/normal BAM pair.
+bench workload's windows, one device round of K1 replayed from them, the
+synthetic tumor/normal BAM pair and K2's seeded misscore4096 pairs.
 
 `make_window_payloads` is the port's copy of `bench.make_window_payloads`
 (the workload bench.py pinned across rounds), on the port's own
@@ -207,3 +207,59 @@ def make_test_pair(tmpdir: str, seed: int = 0, ref_len: int = 60_000,
         for r in sorted(n_recs, key=lambda r: r.pos):
             wtr.write(r)
     return ref_path, tumor, normal, window_records, ref
+
+
+ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def mutate(rng, seq: str, sub_rate: float, n_indels: int,
+           indel_len: tuple[int, int]) -> str:
+    """`seq` with substitutions at `sub_rate`, then `n_indels` insertions
+    or deletions of indel_len[0]..indel_len[1] bp at random positions."""
+    b = np.frombuffer(seq.encode(), np.uint8).copy()
+    hit = rng.random(len(b)) < sub_rate
+    b[hit] = ACGT[rng.integers(0, 4, int(hit.sum()))]
+    s = b.tobytes().decode()
+    for _ in range(n_indels):
+        n = int(rng.integers(indel_len[0], indel_len[1] + 1))
+        p = int(rng.integers(0, len(s) + 1))
+        s = (s[:p] + rand_seq(rng, n) + s[p:] if rng.random() < 0.5
+             else s[:p] + s[p + n:])
+    return s
+
+
+def nw_pairs(rng, n: int, len_lo: int, len_hi: int,
+             sub_rate=(0.02, 0.10), n_indels=(0, 4),
+             indel_len=(1, 20)) -> list[tuple[str, str]]:
+    """`n` (a, b) pairs: a uniform in [len_lo, len_hi] bp, b = a mutated
+    (a per-pair substitution rate drawn from `sub_rate`, up to n_indels[1]
+    indels), cut to len_hi."""
+    out = []
+    for _ in range(n):
+        a = rand_seq(rng, int(rng.integers(len_lo, len_hi + 1)))
+        b = mutate(rng, a, float(rng.uniform(*sub_rate)),
+                   int(rng.integers(n_indels[0], n_indels[1] + 1)),
+                   indel_len)
+        out.append((a, b[:len_hi]))
+    return out
+
+
+def misscore4096_pairs(seed: int = 11, n: int = 4096):
+    """The size of a sample's somatic consensus pairs over tandem-repeat
+    windows: `n` pairs of 100-4,000 bp, 2-10 % substitutions, indels of
+    1-200 bp (every side cut to 4,096 bp, so all pairs fit K2's buckets)."""
+    return nw_pairs(np.random.default_rng(seed), n, 100, 4000,
+                    n_indels=(1, 6), indel_len=(1, 200))
+
+
+def pad_pairs(pairs, l_max: int):
+    """(a_codes, b_codes, la, lb) numpy arrays of `pairs` padded to l_max."""
+    ac = np.zeros((len(pairs), l_max), np.uint8)
+    bc = np.zeros((len(pairs), l_max), np.uint8)
+    la = np.zeros(len(pairs), np.int32)
+    lb = np.zeros(len(pairs), np.int32)
+    for k, (a, b) in enumerate(pairs):
+        ac[k, :len(a)] = np.frombuffer(a.encode(), np.uint8)
+        bc[k, :len(b)] = np.frombuffer(b.encode(), np.uint8)
+        la[k], lb[k] = len(a), len(b)
+    return ac, bc, la, lb

@@ -30,10 +30,12 @@ def _env():
 
 
 def test_port_and_smoke_import_nothing_of_jax_package():
-    """Every module of the port (the scale-out's among them), chip_smoke.py
-    and the card-side helpers, with jax and svscope_tpu blocked, then the
-    scale-out dry run on two CPU devices, a synth-pair AlnFeature run and
-    a DataPrepare --saveData + localGraph_npz replay; no
+    """Every module of the port (the scale-out's and the measurement
+    tools' among them), chip_smoke.py and the card-side helpers, with jax
+    and svscope_tpu blocked, then the scale-out dry run on two CPU
+    devices, the small WGS sweep against its golden, a synth-pair
+    AlnFeature run and a DataPrepare --saveData + localGraph_npz replay;
+    no
     `jax` or `svscope_tpu(.*)` module may be loaded, and no library under
     svscope_tpu/ may be mapped."""
     script = textwrap.dedent("""
@@ -55,6 +57,18 @@ def test_port_and_smoke_import_nothing_of_jax_package():
                      "svscope_tpu_torch.tools.dist_worker",
                      "svscope_tpu_torch.tools.multihost_demo"}
         assert scale_out <= set(names), scale_out - set(names)
+        tools = {"svscope_tpu_torch.tools." + m for m in (
+            "genome_bench", "wgs_bench", "roofline", "bounds",
+            "probe.core_scaling_probe", "probe.engine_ab",
+            "probe.stage_probe", "probe.pipeline_probe",
+            "probe.pk_phase_probe", "probe.e2e_probe", "probe.fused_probe")}
+        assert tools <= set(names), tools - set(names)
+        import genome_golden
+        from svscope_tpu_torch.tools import wgs_bench
+        res = wgs_bench.run(**genome_golden.WGS_SMALL, device="cpu",
+                            log=lambda *_: None)
+        assert res["sha256"] == genome_golden.load_golden()["wgs_small"][
+            "sha256"]
         from svscope_tpu_torch import graft_entry
         graft_entry.dryrun_multichip(2, devices=("cpu", "cpu"))
         import chip_smoke, torch_workloads, localgraph_golden
