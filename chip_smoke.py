@@ -193,10 +193,11 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-from svscope_tpu_torch.tools.bounds import (INT16X2_OPS_PER_S,
-                                            K2_OPS_PER_CELL, bound,
+from svscope_tpu_torch.tools.bounds import (INT16X2_OPS_PER_S, bound,
                                             fusion_bound, k1_bound,
-                                            k2_bound, poa_ops, tensor_bytes)
+                                            k2_bound, k2_bound_all, poa_ops,
+                                            tensor_bytes)
+from svscope_tpu_torch.tools.workloads import pad_pairs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((128, 64, 9), (512, 512, 64), (1024, 512, 256), (2048, 2048, 8))
@@ -1113,9 +1114,8 @@ def fused_phase_split(dev):
 def k2_pair(pairs, bucket, dev, scoring):
     """(kernel, plain) stats (3, n) of `pairs` padded to `bucket`."""
     import torch
-    import alnfeature_golden as ag
     from svscope_tpu_torch.ops import nw_kernel
-    args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(pairs, bucket)]
+    args = [torch.from_numpy(x).to(dev) for x in pad_pairs(pairs, bucket)]
     k = torch.stack(nw_kernel.nw_stats_cuda(*args, bucket, *scoring)).cpu()
     torch.cuda.synchronize()
     p = torch.stack(nw_kernel.nw_stats_reference(*args, bucket, *scoring))
@@ -1210,14 +1210,13 @@ def time_k2(pairs, groups, dev):
     Returns (kernel ms, plain ms, bound) summed over the bucket launches,
     and the per-bucket rows."""
     import torch
-    import alnfeature_golden as ag
     from svscope_tpu_torch.ops import nw_kernel
     t0 = time.perf_counter()
-    rows, k_tot, i_tot, p_tot, nbytes, ops = [], 0.0, 0.0, 0.0, 0, 0
+    rows, k_tot, i_tot, p_tot, cells_all, launches = [], 0.0, 0.0, 0.0, 0, []
     per_bucket = {}
     for bucket, idxs in sorted(groups.items()):
         sub = [pairs[i] for i in idxs]
-        args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(sub, bucket)]
+        args = [torch.from_numpy(x).to(dev) for x in pad_pairs(sub, bucket)]
         cells = sum(len(a) * len(b) for a, b in sub)
         k_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, bucket), 5,
                        True)
@@ -1228,8 +1227,8 @@ def time_k2(pairs, groups, dev):
         k_tot += k_ms
         i_tot += i_ms
         p_tot += p_ms
-        nbytes += tensor_bytes(*args) + 3 * 4 * len(sub)
-        ops += cells * K2_OPS_PER_CELL
+        cells_all += cells
+        launches.append((args, sub))
         b_ms, b_by = k2_bound(args, sub)
         per_bucket[bucket] = {"pairs": len(sub), "ms": k_ms,
                               "ms_issued": i_ms, "plain_ms": p_ms,
@@ -1238,13 +1237,13 @@ def time_k2(pairs, groups, dev):
                     f"({cells / k_ms / 1e6:.3f} GCUPS; issued back to back "
                     f"{i_ms:.4f}) plain {p_ms:.4f} ms bound {b_ms:.4f} ms "
                     f"({b_by})")
-    all_bound = bound(nbytes, ops)
+    all_bound = k2_bound_all(launches)
     phase("k2-time", t0, "misscore4096 per bucket (kernel calls queued ahead "
           "of the device): " + "; ".join(rows)
           + f"; all buckets kernel {k_tot:.4f} ms (issued back to back: "
           f"{i_tot:.4f}) plain {p_tot:.4f} ms bound "
           f"{all_bound[0]:.4f} ms ({all_bound[1]}), "
-          f"{ops / K2_OPS_PER_CELL / k_tot / 1e6:.3f} GCUPS")
+          f"{cells_all / k_tot / 1e6:.3f} GCUPS")
     return k_tot, p_tot, all_bound, per_bucket
 
 
@@ -1261,7 +1260,6 @@ def check_misscore_pipe(records, dev):
     Raw.bed of the port's own records; then K2's time per launch at each of
     its buckets.  Returns K2's launches and {bucket: time and bound}."""
     import torch
-    import alnfeature_golden as ag
     import localgraph_golden as lgg
     from svscope_tpu_torch.engine.features import misscore_pipe
     from svscope_tpu_torch.ops import nw_kernel
@@ -1290,7 +1288,7 @@ def check_misscore_pipe(records, dev):
     # K2's time per launch at the main path's own buckets
     launch = {}
     for k, pairs in sorted(groups.items()):
-        args = [torch.from_numpy(x).to(dev) for x in ag.pad_pairs(pairs, k)]
+        args = [torch.from_numpy(x).to(dev) for x in pad_pairs(pairs, k)]
         k_ms = cuda_ms(lambda: nw_kernel.nw_stats_cuda(*args, k), 20, True)
         b_ms, b_by = k2_bound(args, pairs)
         launch[k] = {"pairs": len(pairs), "ms": k_ms, "bound_ms": b_ms,
@@ -2164,7 +2162,6 @@ def ab_inputs(path, misscore_groups, misscore_pairs, pk_cases):
     arrays."""
     import numpy as np
     import torch
-    import alnfeature_golden as ag
     from svscope_tpu_torch.ops import poa_device
     from svscope_tpu_torch.tools import workloads as tw
     from svscope_tpu_torch.tools.probe import fusebody_probe as fp
@@ -2181,7 +2178,7 @@ def ab_inputs(path, misscore_groups, misscore_pairs, pk_cases):
         sub = [misscore_pairs[i] for i in idxs]
         cases[f"k2 misscore4096 bucket {bucket}"] = (
             "k2", [torch.from_numpy(np.ascontiguousarray(x))
-                   for x in ag.pad_pairs(sub, bucket)], bucket, 5)
+                   for x in pad_pairs(sub, bucket)], bucket, 5)
     for name, (args, fargs) in pk_cases.items():
         chainw = chain_flags(args[2].numpy(), args[5].numpy())
         cases[f"k3 {name}"] = ("k3", [*args, torch.from_numpy(chainw)], 0,

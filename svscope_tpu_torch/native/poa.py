@@ -19,6 +19,18 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
+def declare_msa_batch(l):
+    """Declare poa_msa_batch's C signature on a loaded engine `l`; returns
+    it (tools/probe/engine_ab loads a second build through this)."""
+    l.poa_msa_batch.restype = ct.c_int
+    l.poa_msa_batch.argtypes = [ct.c_char_p, ct.POINTER(ct.c_int64),
+                                ct.c_int64, ct.POINTER(ct.c_int64),
+                                ct.c_int64, ct.POINTER(ct.c_uint8),
+                                ct.c_int64, ct.POINTER(ct.c_int64),
+                                ct.c_int32]
+    return l
+
+
 def lib():
     """Thread-safe lazy CDLL load.
 
@@ -52,12 +64,7 @@ def lib():
         l.poa_msa.argtypes = [ct.c_void_p, ct.c_int, ct.POINTER(ct.c_uint8)]
         l.poa_consensus.argtypes = [ct.c_void_p, ct.c_int,
                                     ct.POINTER(ct.c_uint8)]
-        l.poa_msa_batch.argtypes = [ct.c_char_p, ct.POINTER(ct.c_int64),
-                                    ct.c_int64, ct.POINTER(ct.c_int64),
-                                    ct.c_int64, ct.POINTER(ct.c_uint8),
-                                    ct.c_int64, ct.POINTER(ct.c_int64),
-                                    ct.c_int32]
-        _lib = l
+        _lib = declare_msa_batch(l)
     return _lib
 
 
@@ -155,12 +162,10 @@ def _i64p(a):
     return a.ctypes.data_as(ct.POINTER(ct.c_int64))
 
 
-def poa_msa_batch_native(seq_lists: list[list[str]], threads: int = 8):
-    """Batch MSA across windows with the C++ engine's internal thread pool
-    — one ctypes call for the whole batch (no Python thread fan-out).
-
-    Returns [(consensus, msa_rows)] per window, identical to poa_native."""
-    l = lib()
+def pack_msa_batch(seq_lists: list[list[str]]):
+    """poa_msa_batch's input: (blob, seq_off, win_off, est, safe), est and
+    safe the two output capacities a window: a realistic MSA width (~2x
+    the longest read) and the no-fusion worst case (every base)."""
     flat: list[bytes] = []
     win_off = np.zeros(len(seq_lists) + 1, np.int64)
     for w, seqs in enumerate(seq_lists):
@@ -169,30 +174,39 @@ def poa_msa_batch_native(seq_lists: list[list[str]], threads: int = 8):
     seq_off = np.zeros(len(flat) + 1, np.int64)
     for i, b in enumerate(flat):
         seq_off[i + 1] = seq_off[i] + len(b)
-    blob = b"".join(flat)
-
-    def run(cap):
-        out = np.zeros(len(seq_lists) * cap, np.uint8)
-        out_len = np.zeros(len(seq_lists), np.int64)
-        rc = l.poa_msa_batch(blob, _i64p(seq_off), len(flat), _i64p(win_off),
-                             len(seq_lists), _u8p(out), cap, _i64p(out_len),
-                             int(threads))
-        return rc, out, out_len
-
-    # realistic MSA width ~ 2x longest read; retry with the safe bound
-    # (sum of all bases: no-fusion worst case) on overflow
     est, safe = 1024, 1024
     for w, seqs in enumerate(seq_lists):
         total = int(seq_off[win_off[w + 1]] - seq_off[win_off[w]])
         longest = max((len(s) for s in seqs), default=0)
         est = max(est, (len(seqs) + 2) * (2 * longest + 260))
         safe = max(safe, (len(seqs) + 2) * (total + 2))
-    rc, out, out_len = run(est)
-    if rc != 0:
-        rc, out, out_len = run(safe)
-        if rc != 0:
-            raise RuntimeError("poa_msa_batch overflow at safe capacity")
-    cap = out.size // len(seq_lists)
+    return b"".join(flat), seq_off, win_off, est, safe
+
+
+def msa_batch_bytes(packed, threads: int, engine=None):
+    """One poa_msa_batch call of `engine` (default: this package's) on
+    pack_msa_batch's output, retried at the safe capacity on overflow:
+    (out, out_len, cap), window w's text out[w * cap:][:out_len[w]]."""
+    l = engine if engine is not None else lib()
+    blob, seq_off, win_off, est, safe = packed
+    n_win = len(win_off) - 1
+    for cap in (est, safe):
+        out = np.zeros(n_win * cap, np.uint8)
+        out_len = np.zeros(n_win, np.int64)
+        rc = l.poa_msa_batch(blob, _i64p(seq_off), len(seq_off) - 1,
+                             _i64p(win_off), n_win, _u8p(out), cap,
+                             _i64p(out_len), int(threads))
+        if rc == 0:
+            return out, out_len, cap
+    raise RuntimeError("poa_msa_batch overflow at safe capacity")
+
+
+def poa_msa_batch_native(seq_lists: list[list[str]], threads: int = 8):
+    """Batch MSA across windows with the C++ engine's internal thread pool
+    — one ctypes call for the whole batch (no Python thread fan-out).
+
+    Returns [(consensus, msa_rows)] per window, identical to poa_native."""
+    out, out_len, cap = msa_batch_bytes(pack_msa_batch(seq_lists), threads)
     results = []
     for w in range(len(seq_lists)):
         txt = out[w * cap: w * cap + out_len[w]].tobytes().decode()

@@ -26,6 +26,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import time
 
 import numpy as np
 
@@ -37,6 +38,7 @@ from . import poa_align
 from .poa_fused import fused_msa_batch
 from .poa_device import MAX_PREDS, to_torch_packed, unpack_alignment_arrays
 from ..utils.device import resolve_device
+from ..utils.spans import Spans
 
 N_LADDER = (128, 256, 512, 1024, 2048)
 L_LADDER = (64, 128, 256, 512, 1024, 2048)
@@ -48,6 +50,8 @@ HOST_THREADS = min(8, os.cpu_count() or 1)
 # into sub-batches; the largest bucket (B=256, N=L=2048, ~5.4 GB) runs as
 # two calls of 204 and 52 windows.
 PLANE_BUDGET_BYTES = 4 << 30
+# the parts of a device round that poa_msa_batch(timing=) times
+ROUND_PARTS = ("pack", "h2d", "K1", "d2h", "unpack", "fuse")
 
 _DEFAULT_OVERSIZE = None   # device tuple of the oversize wavefront
 
@@ -95,7 +99,7 @@ def _require_native():
 
 def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
                   threads: int | None = None, device="cuda",
-                  oversize_mesh=None):
+                  oversize_mesh=None, timing: dict | None = None):
     """spoa-equivalent poa(seqs, 1) over many windows.
 
     use_device: False/"host" = host C++ engine; True/"pallas"/"xla" =
@@ -107,6 +111,8 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
     oversize_mesh: a device tuple; windows past the largest (nodes,
     length) bucket align through the column-sharded wavefront over it
     (default: the one `set_default_oversize_mesh` set, else none).
+    timing: a dict; in per-round device mode every round adds the seconds
+    of its parts (ROUND_PARTS, see _RoundParts) to it.
     Returns [(consensus, msa_rows)] per window."""
     device = resolve_device(device)
     _require_native()
@@ -146,7 +152,8 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
                 continue
             items.append((w, seq))
         if items:
-            _device_round(graphs, items, host_only, device, oversize_mesh)
+            _device_round(graphs, items, host_only, device, oversize_mesh,
+                          timing)
     return [(g.consensus(), g.msa()) for g in graphs]
 
 
@@ -182,8 +189,44 @@ def _split_batch(b_pad: int, nb: int, lb: int) -> int:
     return max(1, min(b_pad, PLANE_BUDGET_BYTES // per))
 
 
-def _device_round(graphs, items, host_only, device, oversize_mesh=None):
+class _RoundParts:
+    """Adds a device round's part times, in seconds, to poa_msa_batch's
+    `timing` dict: pack, D2H, unpack and fuse on the host clock; the H2D
+    copies and K1 as spans on the device's clock (utils/spans), read at
+    one synchronise just before the fetch, which waits for them anyway.
+    Every sub-batch still launches before any is fetched.  Without a dict
+    nothing is marked."""
+
+    def __init__(self, timing: dict | None):
+        self.timing = timing
+        self.spans = Spans()
+        self.t = time.perf_counter()
+
+    def host(self, name: str) -> None:
+        """Close host part `name` at now (it began at the last close)."""
+        if self.timing is not None:
+            now = time.perf_counter()
+            self.timing[name] = self.timing.get(name, 0.0) + now - self.t
+            self.t = now
+
+    def mark(self, dev):
+        return None if self.timing is None else self.spans.mark(dev)
+
+    def device(self, name: str, start, dev):
+        """Close device part `name` from mark `start`; returns its end."""
+        return None if self.timing is None else \
+            self.spans.add(name, start, dev)
+
+    def settle(self) -> None:
+        if self.timing is not None:
+            self.spans.read(self.timing)
+            self.t = time.perf_counter()
+
+
+def _device_round(graphs, items, host_only, device, oversize_mesh=None,
+                  timing=None):
     """One round: bucket (window, seq) pairs, device-align, C++ fuse."""
+    parts = _RoundParts(timing)
     buckets: dict[tuple[int, int], list] = {}
     for w, seq in items:
         g = graphs[w]
@@ -200,6 +243,7 @@ def _device_round(graphs, items, host_only, device, oversize_mesh=None):
             g.add_sequence(seq)
             continue
         buckets.setdefault((nb, lb), []).append((w, seq, packed))
+    parts.host("pack")
     for (nb, lb), group in buckets.items():
         for off in range(0, len(group), MAX_BATCH):
             chunk = group[off:off + MAX_BATCH]
@@ -221,6 +265,7 @@ def _device_round(graphs, items, host_only, device, oversize_mesh=None):
                 nn[len(chunk):] = nn[0]
                 seqs[len(chunk):] = seqs[0]
                 lens[len(chunk):] = lens[0]
+            parts.host("pack")
             # the batch axis splits over the installed data mesh (windows
             # independent); the plane budget then applies per device, and
             # every sub-batch is launched before any is fetched
@@ -230,12 +275,19 @@ def _device_round(graphs, items, host_only, device, oversize_mesh=None):
                 b_dev = arrs[0].shape[0]
                 step = _split_batch(b_dev, nb, lb)
                 for s0 in range(0, b_dev, step):
+                    m = parts.mark(dev)
                     args = to_torch_packed(*(a[s0:s0 + step] for a in arrs),
                                            dev)
+                    m = parts.device("h2d", m, dev)
                     outs.append(poa_align.align_batch(*args, lb)[:3])
+                    parts.device("K1", m, dev)
+            parts.settle()
             an, asp, ke = (np.concatenate([o[k].cpu().numpy() for o in outs])
                            for k in range(3))
+            parts.host("d2h")
             for bi, (w, seq, (c, p, s, n, nor)) in enumerate(chunk):
                 nodes, spos = unpack_alignment_arrays(an[bi], asp[bi],
                                                       ke[bi], nor)
+                parts.host("unpack")
                 graphs[w].fuse_arrays(nodes, spos, seq)
+                parts.host("fuse")

@@ -63,13 +63,25 @@ def k1_bound(args, outs):
                  poa_ops(args[1], args[3], args[5]))
 
 
-def k2_bound(args, pairs):
-    """K2's bound on one bucket launch: args its padded input tensors,
-    pairs the (a, b) strings; (score, matches, length) int32 written per
-    pair, K2_OPS_PER_CELL per cell of each pair's own lengths."""
+def k2_work(args, pairs):
+    """(bytes, ops) of K2 on one bucket launch: args its padded input
+    tensors, pairs the (a, b) strings; (score, matches, length) int32
+    written per pair, K2_OPS_PER_CELL per cell of each pair's own
+    lengths."""
     cells = sum(len(a) * len(b) for a, b in pairs)
-    return bound(tensor_bytes(*args) + 12 * len(pairs),
-                 cells * K2_OPS_PER_CELL)
+    return tensor_bytes(*args) + 12 * len(pairs), cells * K2_OPS_PER_CELL
+
+
+def k2_bound(args, pairs):
+    """K2's bound on one bucket launch (k2_work)."""
+    return bound(*k2_work(args, pairs))
+
+
+def k2_bound_all(launches):
+    """K2's bound over several bucket launches, [(args, pairs)] as
+    k2_bound takes them: their bytes and ops summed."""
+    work = [k2_work(args, pairs) for args, pairs in launches]
+    return bound(sum(b for b, _ in work), sum(o for _, o in work))
 
 
 def fusion_bound(an, asx, ke, gminr, seq5, st):

@@ -11,13 +11,12 @@ process's affinity:
      (native/poa.poa_msa_batch_native) with its pool capped at the same
      count;
   3. at every core, the glue inside ops/poa_batch._device_round, part by
-     part, over one MSA build of the same windows: `pack` (the graphs
-     packed and the bucket arrays filled), the H2D copies
-     (`to_torch_packed`), K1 (launch and wait), the D2H of its outputs,
-     `unpack_alignment_arrays` and `fuse_arrays`. The parts run through
-     `timed_device_msa`, a timed copy of the device round (the device is
-     synchronised after K1, so the D2H is the copy alone); its MSAs must
-     equal poa_msa_batch's.
+     part, over one MSA build of the same windows
+     (`poa_msa_batch(..., timing=)`, the build itself, its MSAs checked):
+     `pack` (the graphs packed and the bucket arrays filled), the H2D
+     copies (`to_torch_packed`) and K1 on the device's clock, the D2H of
+     K1's outputs, `unpack_alignment_arrays` and `fuse_arrays`; beside
+     them the build's wall.
 
 If (1) scales with cores as (2) does, the host's cores bound the default
 path; (3) says which glue to move first.
@@ -33,8 +32,6 @@ import time
 
 import numpy as np
 import torch
-
-GLUE_PARTS = ("pack", "h2d", "K1", "d2h", "unpack", "fuse")
 
 
 def core_counts(cpus) -> list[int]:
@@ -61,90 +58,14 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def timed_device_msa(seq_lists, dev, parts: dict):
-    """ops/poa_batch.poa_msa_batch(use_device=True) without a data mesh or
-    an oversize mesh, each part of its device rounds timed into `parts`
-    (seconds, summed). Returns [(consensus, msa_rows)] per window."""
-    from ...ops import poa_align
-    from ...ops import poa_batch as pb
-    from ...ops.poa_device import (MAX_PREDS, to_torch_packed,
-                                   unpack_alignment_arrays)
-
-    def tick(name, t):
-        now = time.perf_counter()
-        parts[name] = parts.get(name, 0.0) + now - t
-        return now
-
-    graphs = [pb._Graph() for _ in seq_lists]
-    host_only = [False] * len(seq_lists)
-    for r in range(max((len(s) for s in seq_lists), default=0)):
-        t = time.perf_counter()
-        buckets: dict = {}
-        for w, seqs in enumerate(seq_lists):
-            if r >= len(seqs):
-                continue
-            seq, g = seqs[r], graphs[w]
-            if len(seq) == 0 or g.n_nodes() == 0 or host_only[w]:
-                g.add_sequence(seq)
-                continue
-            nb = pb._bucket(g.n_nodes(), pb.N_LADDER)
-            lb = pb._bucket(len(seq), pb.L_LADDER)
-            packed = g.pack(nb, MAX_PREDS) if nb and lb else None
-            if packed is None:
-                host_only[w] = True
-                g.add_sequence(seq)
-                continue
-            buckets.setdefault((nb, lb), []).append((w, seq, packed))
-        t = tick("pack", t)
-        for (nb, lb), group in buckets.items():
-            for off in range(0, len(group), pb.MAX_BATCH):
-                chunk = group[off:off + pb.MAX_BATCH]
-                b_pad = pb._bucket(len(chunk), pb.B_LADDER) or len(chunk)
-                arrs = [np.zeros((b_pad, nb), np.uint8),
-                        np.full((b_pad, nb, MAX_PREDS), -1, np.int32),
-                        np.zeros((b_pad, nb), bool),
-                        np.zeros(b_pad, np.int32),
-                        np.zeros((b_pad, lb), np.uint8),
-                        np.zeros(b_pad, np.int32)]
-                for bi, (w, seq, (c, p, s, n, _nor)) in enumerate(chunk):
-                    arrs[0][bi], arrs[1][bi], arrs[2][bi] = c, p, s
-                    arrs[3][bi] = n
-                    arrs[4][bi, :len(seq)] = np.frombuffer(seq.encode(),
-                                                           np.uint8)
-                    arrs[5][bi] = len(seq)
-                for a in arrs:
-                    a[len(chunk):] = a[0]
-                step = pb._split_batch(b_pad, nb, lb)
-                t = tick("pack", t)
-                outs = []
-                for s0 in range(0, b_pad, step):
-                    args = to_torch_packed(*(a[s0:s0 + step] for a in arrs),
-                                           dev)
-                    _sync(dev)
-                    t = tick("h2d", t)
-                    outs.append(poa_align.align_batch(*args, lb)[:3])
-                    _sync(dev)
-                    t = tick("K1", t)
-                an, asp, ke = (np.concatenate([o[k].cpu().numpy()
-                                               for o in outs])
-                               for k in range(3))
-                t = tick("d2h", t)
-                for bi, (w, seq, (c, p, s, n, nor)) in enumerate(chunk):
-                    nodes, spos = unpack_alignment_arrays(an[bi], asp[bi],
-                                                          ke[bi], nor)
-                    t = tick("unpack", t)
-                    graphs[w].fuse_arrays(nodes, spos, seq)
-                    t = tick("fuse", t)
-    return [(g.consensus(), g.msa()) for g in graphs]
-
-
 def run(windows: int = 128, trials: int = 3, device="cuda",
         log=print) -> dict:
     """Rows per core count: {cores: {"engine_s", "poa_s", "glue": {part:
-    s}}}, with the trial lists; restores the process's affinity."""
+    s}, "msa_s"}}, with the trial lists; restores the process's
+    affinity."""
     from ...engine.localgraph import process_window_batch
     from ...native.poa import poa_msa_batch_native
-    from ...ops.poa_batch import poa_msa_batch
+    from ...ops.poa_batch import ROUND_PARTS, poa_msa_batch
     from ...utils.device import resolve_device
     from ..workloads import make_window_payloads
     dev = resolve_device(device)
@@ -153,9 +74,16 @@ def run(windows: int = 128, trials: int = 3, device="cuda",
     seq_lists = [w.sequences for w in wins]
     want = process_window_batch(wins, device=dev)      # warm: builds, EM
     msa_want = poa_msa_batch(seq_lists, use_device=True, device=dev)
-    if timed_device_msa(seq_lists, dev, {}) != msa_want:
-        raise RuntimeError("timed_device_msa's MSAs differ from "
-                           "poa_msa_batch's")
+
+    def timed_msa():
+        glue = {}
+        t0 = time.perf_counter()
+        got = poa_msa_batch(seq_lists, use_device=True, device=dev,
+                            timing=glue)
+        wall = time.perf_counter() - t0
+        if got != msa_want:
+            raise RuntimeError("the timed MSA build differs from the untimed")
+        return glue, wall
     rows = {}
     try:
         for k in core_counts(all_cpus):
@@ -170,15 +98,15 @@ def run(windows: int = 128, trials: int = 3, device="cuda",
             p_s, p_t = _best(lambda: poa_msa_batch_native(seq_lists,
                                                           threads=k),
                              trials)
-            glue = {}
-            timed_device_msa(seq_lists, dev, glue)
+            glue, msa_s = timed_msa()
             rows[k] = {"engine_s": e_s, "engine_trials": e_t, "poa_s": p_s,
-                       "poa_trials": p_t, "glue": glue}
+                       "poa_trials": p_t, "glue": glue, "msa_s": msa_s}
             log(f"{k:3d} cores: engine {e_s:.4f} s = {windows / e_s:.1f} w/s "
                 f"(trials {[round(t, 4) for t in e_t]}); POA stage "
-                f"{p_s * 1e3:.1f} ms; device-round glue "
+                f"{p_s * 1e3:.1f} ms; device MSA build {msa_s * 1e3:.1f} ms, "
+                "its rounds' parts "
                 + ", ".join(f"{p} {glue.get(p, 0.0) * 1e3:.1f} ms"
-                            for p in GLUE_PARTS))
+                            for p in ROUND_PARTS))
     finally:
         os.sched_setaffinity(0, set(all_cpus))
     one, top = rows[1], rows[len(all_cpus)]

@@ -5,7 +5,9 @@ A host's speed drifts from minute to minute, so two engine builds timed one
 after the other cannot tell a small change from the drift. This probe
 builds each source (default: both are the port's
 csrc/host/poa_engine.cpp) through native/_build.ensure_lib into a scratch
-directory of its own (never csrc/_build/), loads both, asserts that their
+directory of its own (never csrc/_build/), loads both, packs the windows
+and calls each through native/poa's own packing and signature
+(pack_msa_batch, msa_batch_bytes), asserts that their
 `poa_msa_batch` outputs on the bench bucket (128 bench windows, 25
 sequences each) are byte-identical, and then times A and B in turns, A
 first in every pair. It is the gate of any change to the engine: a
@@ -33,48 +35,12 @@ from ...native import HOST_SRC
 
 def load(src: str, build_dir: str):
     """Build `src` into build_dir (native/_build's policy) and load it with
-    poa_msa_batch's signature declared."""
+    poa_msa_batch's signature declared (native/poa's declaration)."""
     from ...native._build import ensure_lib
+    from ...native.poa import declare_msa_batch
     tag = os.path.splitext(os.path.basename(src))[0]
-    lib = ct.CDLL(ensure_lib(src, os.path.join(build_dir, f"lib{tag}.so")))
-    lib.poa_msa_batch.restype = ct.c_int
-    lib.poa_msa_batch.argtypes = [
-        ct.c_char_p, ct.POINTER(ct.c_int64), ct.c_int64,
-        ct.POINTER(ct.c_int64), ct.c_int64, ct.POINTER(ct.c_uint8),
-        ct.c_int64, ct.POINTER(ct.c_int64), ct.c_int32]
-    return lib
-
-
-def pack_windows(seq_lists):
-    """(blob, seq_off, win_off, cap) of poa_msa_batch's input, as
-    native/poa.poa_msa_batch_native packs it (first capacity estimate)."""
-    flat: list[bytes] = []
-    win_off = np.zeros(len(seq_lists) + 1, np.int64)
-    for w, seqs in enumerate(seq_lists):
-        flat.extend(s.encode() for s in seqs)
-        win_off[w + 1] = len(flat)
-    seq_off = np.zeros(len(flat) + 1, np.int64)
-    for i, b in enumerate(flat):
-        seq_off[i + 1] = seq_off[i] + len(b)
-    cap = max(1024, max((len(s) + 2) * (2 * max(map(len, s)) + 260)
-                        for s in seq_lists))
-    return b"".join(flat), seq_off, win_off, cap
-
-
-def call(lib, packed, threads: int):
-    """One poa_msa_batch call: (out bytes, out lengths)."""
-    blob, seq_off, win_off, cap = packed
-    n_win = len(win_off) - 1
-    out = np.zeros(n_win * cap, np.uint8)
-    out_len = np.zeros(n_win, np.int64)
-    i64p = ct.POINTER(ct.c_int64)
-    rc = lib.poa_msa_batch(blob, seq_off.ctypes.data_as(i64p),
-                           len(seq_off) - 1, win_off.ctypes.data_as(i64p),
-                           n_win, out.ctypes.data_as(ct.POINTER(ct.c_uint8)),
-                           cap, out_len.ctypes.data_as(i64p), threads)
-    if rc != 0:
-        raise RuntimeError(f"poa_msa_batch rc={rc}")
-    return out, out_len
+    return declare_msa_batch(ct.CDLL(
+        ensure_lib(src, os.path.join(build_dir, f"lib{tag}.so"))))
 
 
 def run(src_a: str | None = None, src_b: str | None = None,
@@ -83,29 +49,34 @@ def run(src_a: str | None = None, src_b: str | None = None,
     """Builds, loads and compares the two engines; times them in turns when
     their outputs are byte-identical. Returns {"identical", "a_s", "b_s"}
     (seconds per call, every trial)."""
+    from ...native.poa import msa_batch_bytes, pack_msa_batch
     from ...utils.device import resolve_device
     from ..workloads import make_window_payloads
     resolve_device(device)
     default = os.path.join(HOST_SRC, "poa_engine.cpp")
     src_a, src_b = src_a or default, src_b or default
     wins = make_window_payloads(windows, np.random.default_rng(3))
-    packed = pack_windows([w.sequences for w in wins])
+    packed = pack_msa_batch([w.sequences for w in wins])
+
+    def call(engine):
+        return msa_batch_bytes(packed, threads, engine)
     with tempfile.TemporaryDirectory(prefix="engine_ab_") as d:
         a = load(src_a, os.path.join(d, "a"))
         b = load(src_b, os.path.join(d, "b"))
-        call(a, packed, threads), call(b, packed, threads)     # warm
-        ra, rb = call(a, packed, threads), call(b, packed, threads)
-        identical = bool((ra[1] == rb[1]).all() and (ra[0] == rb[0]).all())
+        call(a), call(b)                                       # warm
+        ra, rb = call(a), call(b)
+        identical = ra[2] == rb[2] and bool((ra[1] == rb[1]).all()
+                                            and (ra[0] == rb[0]).all())
         log(f"A {src_a}\nB {src_b}\noutputs byte-identical: {identical}")
         if not identical:
             return {"identical": False, "a_s": [], "b_s": []}
         ta, tb = [], []
         for _ in range(trials):
             t0 = time.perf_counter()
-            call(a, packed, threads)
+            call(a)
             ta.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
-            call(b, packed, threads)
+            call(b)
             tb.append(time.perf_counter() - t0)
     log(f"A: best {min(ta):.4f} s {sorted(round(t, 4) for t in ta)}")
     log(f"B: best {min(tb):.4f} s {sorted(round(t, 4) for t in tb)}")

@@ -12,13 +12,19 @@
        gAB    glue + K3 + K4/K5 (fusion), the state threaded through the
               rounds from an empty one, as the build runs them (after each
               round it must equal the next recorded state).
-     The phase costs are the differences of the best times: K3 = gA -
-     glue, fusion = gAB - gA. The JAX probe replays one jitted
-     fori_loop; here the toposort syncs with the host every
-     KAHN_CHECK_EVERY steps (poa_fused.py), so no CUDA graph can capture
-     the glue: each replay is timed alone with CUDA events around the
-     whole loop, its calls as they run (tools/timing.py, queued=False),
-     the three phases in turns, `--reps` turns.
+     Inside each gAB replay every K3 and every fusion call is a span on
+     the device's clock (utils/spans: CUDA events around the call, read
+     after the replay); the phase costs are those of the fastest gAB
+     replay: K3 and fusion the sums of their spans, the glue the replay
+     less both. The JAX probe takes the costs as differences of replays
+     (K3 = gA - glue, fusion = gAB - gA); here the toposort syncs with the
+     host every KAHN_CHECK_EVERY steps (poa_fused.py), so no CUDA graph
+     can capture the glue, and replays timed one by one spread by more
+     than K3 and fusion take. The differences are printed beside the
+     spans only where they exceed the spread of the replays they compare
+     (at least two turns), and are "unresolved" otherwise. Each replay is
+     timed alone, events around the whole loop after a synchronise, the
+     three in turns, `--reps` turns.
 Compare the sum with chip_smoke.py's bench256-fused-split (the same batch
 size, its phases synchronised at every boundary) and with the full build
 timed here.
@@ -69,8 +75,9 @@ def record(seqs, lens, n_seqs, ncap: int, dev):
     return states, rounds, out
 
 
-def replay(phase: str, states, rounds, empty):
-    """One replay loop (PHASES); returns the threaded state for gAB."""
+def replay(phase: str, states, rounds, empty, spans=None):
+    """One replay loop (PHASES); returns the threaded state for gAB.
+    spans (utils/spans.Spans): each K3 and fusion call marked as a span."""
     from ...ops.poa_fused import pk_round_prep
     from ...ops.poa_fused_kernel import align_tb, fusion
     st = empty
@@ -80,12 +87,42 @@ def replay(phase: str, states, rounds, empty):
         if phase == "glue":
             continue
         *k3_ops, gminr = ops
+        m = spans.mark(seq.device) if spans else None
         an, asx, ke = align_tb(*k3_ops)
+        if spans:
+            spans.add("K3", m, seq.device)
         if phase == "gA":
             continue
         st.ovf |= cyclic.to(torch.int32)
+        m = spans.mark(seq.device) if spans else None
         fusion(an, asx, ke, gminr, seq, st)
+        if spans:
+            spans.add("fusion", m, seq.device)
     return st
+
+
+def timed_replay(phase: str, states, rounds, empty, dev):
+    """ms of one replay on the device's clock (the device synchronised
+    first, the fresh gAB state made before the start) and, for gAB, the
+    ms of its K3 and fusion spans: ({"replay", "K3", "fusion"})."""
+    from ...utils.spans import Spans
+    st = empty() if phase == "gAB" else None
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    calls, whole = Spans(), Spans()
+    m = whole.mark(dev)
+    replay(phase, states, rounds, st, calls if phase == "gAB" else None)
+    whole.add("replay", m, dev)
+    secs = calls.read(whole.read({}))
+    return {k: v * 1e3 for k, v in secs.items()}
+
+
+def resolved(a: list, b: list):
+    """min(b) - min(a) where it exceeds the spread of both trial lists
+    (two or more each), else None."""
+    spread = max(max(a) - min(a), max(b) - min(b))
+    d = min(b) - min(a)
+    return d if len(a) > 1 and len(b) > 1 and d > spread else None
 
 
 def check_threaded(states, rounds, st, out) -> None:
@@ -106,13 +143,14 @@ def check_threaded(states, rounds, st, out) -> None:
 
 def run(b: int = 128, reads: int = 24, reps: int = 3, device="cuda",
         log=print) -> dict:
-    """Seconds of the full build and of each replay, the phase costs
-    (glue, K3, fusion) and the build's counts."""
+    """ms of the full build and of each replay, the phase costs (glue, K3,
+    fusion) from the fastest gAB replay's spans, the differences of the
+    replays where they resolve, and the build's counts."""
     from ...ops import poa_fused as tpf
     from ...ops.poa_fused import build_batch_pk
     from ...ops.poa_fused_kernel import GraphState
     from ...utils.device import resolve_device
-    from ..timing import time_call, time_each
+    from ..timing import time_call
     dev = resolve_device(device)
     seqs, lens, n_seqs, ncap = bench_arrays(b, reads)
     full_ms = time_call(lambda: build_batch_pk(seqs, lens, n_seqs,
@@ -125,39 +163,44 @@ def run(b: int = 128, reads: int = 24, reps: int = 3, device="cuda",
         f"{len(rounds)} rounds, states "
         f"{sum(sum(t.numel() * 4 for t in s.tensors()) for s in states) / 1e6:.0f}"
         f" MB on {dev}; counts {counts}")
-    empty = lambda: (GraphState.empty(b, ncap, dev),)
-    check_threaded(states, rounds, empty()[0], out)
-    # the phases in turns (glue gA gAB, then gAB gA glue, ...), each call
-    # timed alone: the host's pace drifts between calls, and a difference
-    # of two replays timed minutes apart can come out negative
+
+    def empty():
+        return GraphState.empty(b, ncap, dev)
+    check_threaded(states, rounds, empty(), out)
+    # the phases in turns (glue gA gAB, then gAB gA glue, ...), each
+    # replay timed alone
     trials = {p: [] for p in PHASES}
+    spans = []
     for turn in range(reps):
         for phase in PHASES if turn % 2 == 0 else PHASES[::-1]:
+            t = timed_replay(phase, states, rounds, empty, dev)
+            trials[phase].append(t["replay"])
             if phase == "gAB":
-                t = time_each(empty,
-                              lambda st: replay("gAB", states, rounds, st),
-                              dev, 1, queued=False)
-            else:
-                t = time_call(lambda: replay(phase, states, rounds, None),
-                              dev, 1, queued=False)
-            trials[phase].append(t)
+                spans.append(t)
     ms = {p: min(v) for p, v in trials.items()}
-    costs = {"glue": ms["glue"], "K3": ms["gA"] - ms["glue"],
-             "fusion": ms["gAB"] - ms["gA"]}
+    best = min(spans, key=lambda t: t["replay"])
+    costs = {"glue": best["replay"] - best["K3"] - best["fusion"],
+             "K3": best["K3"], "fusion": best["fusion"]}
+    diffs = {"K3": resolved(trials["glue"], trials["gA"]),
+             "fusion": resolved(trials["gA"], trials["gAB"])}
     log("[replays] " + ", ".join(
         f"{p} {[round(t, 3) for t in v]}" for p, v in trials.items())
-        + " ms (the best of each is used)")
-    log(f"[phases] rounds={len(rounds)} glue {costs['glue']:.3f} ms, K3 "
-        f"{costs['K3']:.3f} ms, fusion {costs['fusion']:.3f} ms (replay "
-        f"gAB {ms['gAB']:.3f} ms against the full build {full_ms:.3f} ms, "
-        f"which adds the upload, the final toposort, the consensus walk "
-        f"and the download)")
-    tot = ms["gAB"]
-    log("[share] " + ", ".join(f"{k} {100 * v / tot:.1f} %"
+        + " ms")
+    log(f"[phases] rounds={len(rounds)}, the fastest gAB replay "
+        f"{best['replay']:.3f} ms: K3 {costs['K3']:.3f} ms and fusion "
+        f"{costs['fusion']:.3f} ms (their calls' spans), glue "
+        f"{costs['glue']:.3f} ms (the rest); the full build "
+        f"{full_ms:.3f} ms adds the upload, the final toposort, the "
+        f"consensus walk and the download")
+    log("[differences] " + ", ".join(
+        f"{k} " + (f"{v:.3f} ms" if v is not None else
+                   "unresolved (below the replays' spread)")
+        for k, v in diffs.items()))
+    log("[share] " + ", ".join(f"{k} {100 * v / best['replay']:.1f} %"
                                 for k, v in costs.items()))
     return {"b": b, "reads": reads, "ncap": ncap, "rounds": len(rounds),
             "full_ms": full_ms, "replay_ms": ms, "replay_trials": trials,
-            "phase_ms": costs, "counts": counts}
+            "phase_ms": costs, "diff_ms": diffs, "counts": counts}
 
 
 def main(argv=None):

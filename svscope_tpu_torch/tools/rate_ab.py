@@ -3,6 +3,7 @@ in turns, in one call (an A/B of two commits' unsharded rates).
 
     python -m svscope_tpu_torch.tools.rate_ab --trees ../parent . \\
         [--workload heavy32x400] [--turns 4] [--runs 3] [--device cuda]
+        [--device-poa pallas|fused|host]
 
 Each turn starts one process per tree, the trees in order and then in
 reverse, every other turn with the trees' order reversed (four turns:
@@ -10,7 +11,8 @@ A B B A, B A A B, A B B A, B A A B), so each tree runs as often in each
 slot of a turn.  A process puts its tree's root first on sys.path, so it runs
 that tree's port on the same seeded payloads
 (`tools/workloads.make_window_payloads`).  A process runs
-process_window_batch once cold, then `--runs` times warm, and times the
+process_window_batch (on `--device-poa`, default the device's default
+engine) once cold, then `--runs` times warm, and times the
 two stages alone on the same windows, `--runs` times each: stage A (the
 POA and the feature columns, `_stage_a`) and the batched EM
 (`em_cluster_batch_dispatch`, labels only, as the batch path calls it).
@@ -44,9 +46,9 @@ from svscope_tpu_torch.tools.workloads import make_window_payloads
 n, seed, kw = json.loads(sys.argv[2])
 runs, dev = int(sys.argv[3]), torch.device(sys.argv[4])
 wins = make_window_payloads(n, np.random.default_rng(seed), **kw)
-wins = wins[:int(sys.argv[5])] if len(sys.argv) > 5 else wins
+wins = wins[:int(sys.argv[6])] if len(sys.argv) > 6 else wins
 sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-poa = lg.resolve_device_poa(None, lg.resolve_device(dev))
+poa = lg.resolve_device_poa(sys.argv[5] or None, lg.resolve_device(dev))
 
 def timed(fn):
     t = time.perf_counter()
@@ -54,13 +56,15 @@ def timed(fn):
     sync()
     return out, time.perf_counter() - t
 
-recs, cold = timed(lambda: lg.process_window_batch(wins, device=dev))
+recs, cold = timed(lambda: lg.process_window_batch(wins, device=dev,
+                                                   device_poa=poa))
 sha = hashlib.sha256("\\n".join(lg.record_line(r) for r in recs)
                      .encode()).hexdigest()
 out = {"records": sha, "cold_s": cold, "run_s": [], "stage_a_s": [],
        "em_s": []}
 for _ in range(runs):
-    again, s = timed(lambda: lg.process_window_batch(wins, device=dev))
+    again, s = timed(lambda: lg.process_window_batch(
+        wins, device=dev, device_poa=poa))
     if again != recs:
         raise SystemExit("records not repeatable")
     out["run_s"].append(s)
@@ -77,9 +81,10 @@ print(json.dumps(out))
 """
 
 
-def run_tree(root: str, spec, runs: int, device: str, windows) -> dict:
+def run_tree(root: str, spec, runs: int, device: str, windows,
+             device_poa: str | None = None) -> dict:
     argv = [sys.executable, "-c", WORKER, root, json.dumps(spec), str(runs),
-            device] + ([str(windows)] if windows else [])
+            device, device_poa or ""] + ([str(windows)] if windows else [])
     res = subprocess.run(argv, cwd=root, capture_output=True, text=True,
                          timeout=1200)
     if res.returncode != 0:
@@ -98,6 +103,8 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--windows", type=int, default=None)
+    ap.add_argument("--device-poa", default=None,
+                    choices=["pallas", "fused", "host"])
     args = ap.parse_args(argv)
     spec = WORKLOADS[args.workload]
     n = min(spec[0], args.windows or spec[0])
@@ -109,7 +116,8 @@ def main(argv=None) -> int:
            for t in args.trees}
     shas = set()
     for k in order:
-        r = run_tree(roots[k], spec, args.runs, args.device, args.windows)
+        r = run_tree(roots[k], spec, args.runs, args.device, args.windows,
+                     args.device_poa)
         shas.add(r["records"])
         tree = args.trees[k]
         for key in ("run_s", "stage_a_s", "em_s"):
@@ -126,7 +134,8 @@ def main(argv=None) -> int:
         r["w_s_best"] = n / min(r["run_s"])
         r["w_s_range"] = [n / max(r["run_s"]), n / min(r["run_s"])]
     print(json.dumps({"workload": args.workload, "windows": n,
-                      "device": args.device, "trees": res}))
+                      "device": args.device, "device_poa": args.device_poa,
+                      "trees": res}))
     return 0
 
 

@@ -143,13 +143,11 @@ def k2_row(n_pairs: int, dev: torch.device, reps: int = 5) -> dict:
     groups = {}
     for a, b in pairs:
         groups.setdefault(bucket_of(max(len(a), len(b))), []).append((a, b))
-    cells, ms, nbytes, ops = 0, 0.0, 0, 0
+    cells, ms, launches = 0, 0.0, []
     for bucket, sub in sorted(groups.items()):
         args = [torch.from_numpy(x).to(dev) for x in pad_pairs(sub, bucket)]
-        c = sum(len(a) * len(b) for a, b in sub)
-        cells += c
-        nbytes += bounds.tensor_bytes(*args) + 12 * len(sub)
-        ops += c * bounds.K2_OPS_PER_CELL
+        cells += sum(len(a) * len(b) for a, b in sub)
+        launches.append((args, sub))
         if dev.type == "cuda":
             ms += time_call(lambda: nw_stats_cuda(*args, bucket), dev, reps,
                             queued=True)
@@ -158,7 +156,7 @@ def k2_row(n_pairs: int, dev: torch.device, reps: int = 5) -> dict:
                             1, queued=False)
     if dev.type != "cuda":
         return _row("K2 plain (CPU)", cells, ms, None)
-    return _row("K2", cells, ms, bounds.bound(nbytes, ops))
+    return _row("K2", cells, ms, bounds.k2_bound_all(launches))
 
 
 def em_windows(n: int, rng):

@@ -76,8 +76,16 @@ def nw_case(bucket: int):
 
 def pad_pairs(pairs, l_max: int):
     """(a_codes, b_codes, la, lb) numpy arrays of `pairs` padded to l_max."""
-    from svscope_tpu_torch.tools.workloads import pad_pairs as pad
-    return pad(pairs, l_max)
+    import numpy as np
+    ac = np.zeros((len(pairs), l_max), np.uint8)
+    bc = np.zeros((len(pairs), l_max), np.uint8)
+    la = np.zeros(len(pairs), np.int32)
+    lb = np.zeros(len(pairs), np.int32)
+    for k, (a, b) in enumerate(pairs):
+        ac[k, :len(a)] = np.frombuffer(a.encode(), np.uint8)
+        bc[k, :len(b)] = np.frombuffer(b.encode(), np.uint8)
+        la[k], lb[k] = len(a), len(b)
+    return ac, bc, la, lb
 
 
 def jax_nw_stats(pairs, l_max: int, scoring) -> list[list[int]]:

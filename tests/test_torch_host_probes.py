@@ -8,7 +8,7 @@ import pytest
 import torch
 
 import localgraph_golden as lgg
-from svscope_tpu_torch.ops.poa_batch import poa_msa_batch
+from svscope_tpu_torch.ops.poa_batch import ROUND_PARTS, poa_msa_batch
 from svscope_tpu_torch.tools.probe import (core_scaling_probe, e2e_probe,
                                            pipeline_probe, stage_probe)
 from svscope_tpu_torch.tools.workloads import make_window_payloads
@@ -34,15 +34,16 @@ def test_core_counts():
 
 
 def test_timed_device_round_equals_poa_msa_batch():
-    """The probe's timed copy of the device round gives poa_msa_batch's
-    MSAs (device aligner, plain K1 on the CPU) and times every part."""
+    """poa_msa_batch(timing=), which the probe reads, gives the untimed
+    build's MSAs (device aligner, plain K1 on the CPU) and times every
+    part of the device round."""
     jobs = [w.sequences for w in
             make_window_payloads(2, np.random.default_rng(3))]
     parts = {}
-    got = core_scaling_probe.timed_device_msa(jobs, torch.device("cpu"),
-                                              parts)
+    got = poa_msa_batch(jobs, use_device=True, device="cpu", timing=parts)
     assert got == poa_msa_batch(jobs, use_device=True, device="cpu")
-    assert set(parts) == set(core_scaling_probe.GLUE_PARTS)
+    assert set(parts) == set(ROUND_PARTS)
+    assert all(v >= 0 for v in parts.values())
 
 
 def test_core_scaling_probe_runs_at_one_core(one_core):
@@ -50,7 +51,8 @@ def test_core_scaling_probe_runs_at_one_core(one_core):
     assert list(res["rows"]) == [1]
     row = res["rows"][1]
     assert row["engine_s"] > 0 and row["poa_s"] > 0
-    assert set(row["glue"]) == set(core_scaling_probe.GLUE_PARTS)
+    assert set(row["glue"]) == set(ROUND_PARTS)
+    assert 0 < sum(row["glue"].values()) <= row["msa_s"]
     assert os.sched_getaffinity(0) == {min(os.sched_getaffinity(0))}
 
 

@@ -27,7 +27,7 @@ def _jax_tool():
 
 def test_chip_smoke_and_roofline_share_one_bound():
     for name in ("bound", "tensor_bytes", "poa_ops", "k1_bound", "k2_bound",
-                 "fusion_bound", "K2_OPS_PER_CELL", "INT16X2_OPS_PER_S"):
+                 "k2_bound_all", "fusion_bound", "INT16X2_OPS_PER_S"):
         assert getattr(chip_smoke, name) is getattr(bounds, name)
     assert bounds.bound(3.35e9, 0) == pytest.approx((1.0, "bytes"))
     assert bounds.bound(0, 16.7e9)[1] == "operations"
@@ -48,6 +48,21 @@ def test_k1_bound_counts_the_workload():
     nbytes = sum(a.nbytes for a in arrs) + 2 * 2 * 1024 * 4
     assert bounds.poa_ops(arrs[1], arrs[3], arrs[5]) == ops
     assert bounds.k1_bound(args, outs) == bounds.bound(nbytes, ops)
+
+
+def test_k2_bound_all_sums_the_bucket_launches():
+    """The all-bucket K2 bound that roofline's K2 row and chip_smoke's
+    misscore4096 total print: every launch's bytes and ops summed."""
+    from svscope_tpu_torch.tools.workloads import misscore4096_pairs, pad_pairs
+    pairs = misscore4096_pairs(n=6)
+    launches = [([torch.from_numpy(x) for x in pad_pairs(sub, l_max)], sub)
+                for sub, l_max in ((pairs[:2], 4096), (pairs[2:], 4096))]
+    work = [bounds.k2_work(a, p) for a, p in launches]
+    assert bounds.k2_bound_all(launches) == bounds.bound(
+        sum(b for b, _ in work), sum(o for _, o in work))
+    assert bounds.k2_bound_all(launches[:1]) == bounds.k2_bound(*launches[0])
+    cells = sum(len(a) * len(b) for a, b in pairs)
+    assert sum(o for _, o in work) == cells * bounds.K2_OPS_PER_CELL
 
 
 class _Captured(Exception):
