@@ -155,9 +155,15 @@ non-zero before the final line:
      hash == JAX's), roofline (native POA, K1 and its plain version, K2 on
      misscore4096 against the bound of tools/bounds.py, the batched EM),
      engine_ab (one engine source built twice: byte-identical, timed in
-     turns), stage_probe, pipeline_probe, pk_phase_probe, e2e_probe
-     (records == the localGraph golden) and fused_probe (MSAs == the host
-     engine's).
+     turns), pipeline_probe, pk_phase_probe and fused_probe (MSAs == the
+     host engine's).
+ 26. bench: svscope_tpu_torch.tools.bench (bench.py's measurement) on the
+     card, bench256 with the heavy tier, its JSON line printed as
+     `[bench] {...}`: the headline (host POA, the EM on the card), each
+     POA engine (host, pallas: K1, fused: K3 and K4) with 256/256 records
+     == the localGraph golden, the stage parts per engine and the device
+     round's parts, the heavy tier (host and pallas) 32/32 == golden;
+     its launches counted from 0 (launches_bench).
 
 With `--ab TREE ...` (source trees' roots, relative to this script; "."
 is this checkout), K1 at the k1-time and heavy shapes, K2 at every
@@ -175,7 +181,8 @@ error, times and bound (a probe's row: the sums over its variants, which
 it lists under "variants", with the library call's time where there is
 one; K1's, K2's, K3's and K4's rows add their launches per workload and
 new CLI path (launches_dataprepare, launches_chrom, launches_genome_bench,
-...; launches_tools: the tools phase's, not in the totals), K1's the chrom
+launches_bench, ...; launches_tools: the tools phase's, not in the
+totals), K1's the chrom
 and genome runs' stage walls, K1's and
 the pk kernels' the heavy shape as timed, K4's and K5's their single-call
 times, K4's its serial-walk windows per round checked, K2's its time per
@@ -197,7 +204,7 @@ from svscope_tpu_torch.tools.bounds import (INT16X2_OPS_PER_S, bound,
                                             fusion_bound, k1_bound,
                                             k2_bound, k2_bound_all, poa_ops,
                                             tensor_bytes)
-from svscope_tpu_torch.tools.workloads import pad_pairs
+from svscope_tpu_torch.tools.workloads import HEAVY_WINDOWS, pad_pairs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SHAPES = ((128, 64, 9), (512, 512, 64), (1024, 512, 256), (2048, 2048, 8))
@@ -1343,6 +1350,7 @@ def path_launches(name, fn, need):
     from svscope_tpu_torch.ops import nw_batch, nw_kernel, poa_align
     from svscope_tpu_torch.ops import poa_fused as tpf
     from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    from svscope_tpu_torch.tools.genome_bench import launch_counts
     poa_align.reset_launches()
     nw_kernel.reset_launches()
     tpk.reset_launches()
@@ -1350,8 +1358,7 @@ def path_launches(name, fn, need):
     tpf.reset_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches = {"K1": poa_align.LAUNCHES, "K2": nw_kernel.LAUNCHES,
-                **tpk.LAUNCHES}
+    launches = launch_counts()
     missing = [k for k in need if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"{name}: the main path launched no {missing} "
@@ -2074,17 +2081,18 @@ def run_tools(dev, golden):
     """Phase tools: the port's measurement tools once each at their bench
     sizes, tables printed: wgs_bench at the golden's small configuration
     (its frame's hash == JAX's), roofline, engine_ab (the engine source
-    twice: byte-identical), stage_probe, pipeline_probe, pk_phase_probe,
-    e2e_probe (records == the localGraph golden) and fused_probe (MSAs ==
-    the host engine's).  Returns the launches of the whole phase."""
+    twice: byte-identical), pipeline_probe, pk_phase_probe and fused_probe
+    (MSAs == the host engine's); the bench phase runs stage_probe and
+    e2e_probe for every engine.  Returns the launches of the whole
+    phase."""
     import genome_golden as gg
     from svscope_tpu_torch.tools import roofline, wgs_bench
-    from svscope_tpu_torch.tools.probe import (e2e_probe, engine_ab,
-                                               fused_probe, pipeline_probe,
-                                               pk_phase_probe, stage_probe)
+    from svscope_tpu_torch.tools.probe import (engine_ab, fused_probe,
+                                               pipeline_probe,
+                                               pk_phase_probe)
     t0 = time.perf_counter()
     log = lambda line: print("  " + line, flush=True)
-    bench = golden["workloads"]["bench256"]["records"]
+    n_bench = len(golden["workloads"]["bench256"]["records"])
 
     def tools():
         want = gg.load_golden()["wgs_small"]
@@ -2094,22 +2102,46 @@ def run_tools(dev, golden):
         roofline.run(dev, log=log)
         if not engine_ab.run(device=dev, log=log)["identical"]:
             raise RuntimeError("engine_ab: one source, two outputs")
-        stage_probe.run(trials=1, device=dev, log=log)
         pipeline_probe.run(trials=1, device=dev, log=log)
         pk_phase_probe.run(reps=3, device=dev, log=log)
-        e2e = e2e_probe.run(trials=1, device=dev, golden=bench, log=log)
-        bad = {k: r["golden"] for k, r in e2e.items()
-               if r["golden"] != len(bench)}
-        if bad:
-            raise RuntimeError(f"e2e_probe: golden records {bad}")
         fp = fused_probe.run(trials=1, device=dev, log=log)
-        if fp["identical"] != len(bench):
+        if fp["identical"] != n_bench:
             raise RuntimeError(f"fused_probe: {fp['identical']} identical")
 
     _, launches = path_launches("tools", tools, ("K1", "K2", "K3", "K4"))
     phase("tools", t0, "wgs_bench (== JAX), roofline, engine_ab, "
-          "stage_probe, pipeline_probe, pk_phase_probe, e2e_probe, "
-          f"fused_probe; launches {launches}")
+          f"pipeline_probe, pk_phase_probe, fused_probe; launches "
+          f"{launches}")
+    return launches
+
+
+def run_bench(dev, golden):
+    """Phase bench: svscope_tpu_torch/tools/bench.py's run_measurement on
+    bench256 with the heavy tier, its JSON line printed; every engine's
+    records 256/256 and the heavy tier's 32/32 == the localGraph golden;
+    K1, K3 and K4 launched (counted from 0), no host-DP pair and no fused
+    fallback.  Returns the phase's launches."""
+    from svscope_tpu_torch.tools import bench
+    t0 = time.perf_counter()
+    out, launches = path_launches("bench", lambda: bench.run_measurement(
+        bench.N_WINDOWS, heavy=True, device=dev, golden=golden,
+        engines=bench.ENGINES, log=lambda line: print("  " + line,
+                                                       flush=True)),
+        ("K1", "K3", "K4"))
+    print("[bench] " + json.dumps(out), flush=True)
+    heavy = out["heavy_tier"]
+    counts = bench.golden_counts(out)
+    n = len(golden["workloads"]["bench256"]["records"])
+    want = {"headline": n, **{k: n for k in bench.ENGINES},
+            "heavy_tier": HEAVY_WINDOWS, "heavy_tier.pallas": HEAVY_WINDOWS}
+    if {k: c for k, (c, _n) in counts.items()} != want:
+        raise RuntimeError(f"bench: records == golden {counts}, want {want}")
+    phase("bench", t0, f"{out['value']} w/s (host POA, EM on the card), "
+          + ", ".join(f"{k} {r['w_per_s']:.3f} w/s {r['golden']}/"
+                      f"{out['n_windows']}" for k, r in out["engines"].items())
+          + f"; heavy host {heavy['w_per_s']} w/s, pallas "
+          f"{heavy['pallas']['w_per_s']} w/s, {HEAVY_WINDOWS}/"
+          f"{HEAVY_WINDOWS} == golden; launches {launches}")
     return launches
 
 
@@ -2359,6 +2391,9 @@ def main(argv=None):
     for name, (_res, n) in genome.items():
         launches += n["K1"]
         k2_launches += n["K2"]
+    # this slice: bench.py's measurement on the card (K1, K3, K4)
+    bench_k = run_bench(dev, golden)
+    launches += bench_k["K1"]
     if args.ab:
         run_ab(args.ab, k2_groups, k2_pairs, pk_ab)
 
@@ -2391,6 +2426,7 @@ def main(argv=None):
     k1["launches_genome_bench"] = genome["genome-bench"][1]["K1"]
     k1["genome_bench_stage_s"] = genome["genome-bench"][0]["stages"]
     k1["launches_tools"] = tool_launches["K1"]
+    k1["launches_bench"] = bench_k["K1"]
     k1["heavy_shape"] = {"B": 32, "N": 1024, "L": 512,
                          "ms": k1_heavy["ms"],
                          "plain_ms": k1_heavy["plain_ms"],
@@ -2416,6 +2452,8 @@ def main(argv=None):
             entry["launches"] += fused_genome
             entry["launches_genome_bench_fused"] = fused_genome
             entry["launches_tools"] = tool_launches[k]
+            entry["launches"] += bench_k[k]
+            entry["launches_bench"] = bench_k[k]
         # each pk kernel at the heavy capture, as timed
         entry["heavy_shape"] = {**heavy_shape, "round": PK_HEAVY_ROUND + 1,
                                 "ms": pk_ms[k + " heavy"][0],

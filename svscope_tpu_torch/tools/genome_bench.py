@@ -371,7 +371,8 @@ def tier_table(classes, cand_spans, som_calls, vcf_calls) -> dict:
             for c in TRUTH_CLASSES + DECOY_CLASSES}
 
 
-def _launch_counts() -> dict:
+def launch_counts() -> dict:
+    """Kernel launches so far: K1, K2, K3, K4, K5 (each wrapper's count)."""
     from ..ops import nw_kernel, poa_align
     from ..ops import poa_fused_kernel as tpk
     return {"K1": poa_align.LAUNCHES, "K2": nw_kernel.LAUNCHES,
@@ -424,7 +425,7 @@ def run(mb_per_chrom: float = 5.0, chroms: int = 4, depth: int = 12,
         + ", ".join(f"{c} {len(classes[c])}" for c in TRUTH_CLASSES)
         + f"); {len(decoys)} decoys ("
         + ", ".join(f"{c} {len(classes[c])}" for c in DECOY_CLASSES) + ")")
-    before = _launch_counts()
+    before = launch_counts()
 
     t0 = time.perf_counter()
     t_table, t_bp = scan_with_breakpoints(tumor)
@@ -474,7 +475,7 @@ def run(mb_per_chrom: float = 5.0, chroms: int = 4, depth: int = 12,
     stages["AlnFeature"] = time.perf_counter() - t0
     log(f"[AlnFeature] {stages['AlnFeature']:.3f}s  {len(vcf_calls)} VCF "
         f"records; peak RSS {peak_rss_mb():.0f} MB")
-    after = _launch_counts()
+    after = launch_counts()
 
     cand_spans = [(w.split("\t")[0], int(w.split("\t")[1]),
                    int(w.split("\t")[2])) for w in windows]

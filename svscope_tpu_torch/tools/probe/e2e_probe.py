@@ -48,8 +48,8 @@ def load_golden(path: str | None, name: str = "bench256"):
 
 def run(engines=tuple(ENGINES), windows: int = 256, trials: int = 3,
         device="cuda", golden=None, log=print) -> dict:
-    """{engine: {"cold_s", "best_s", "w_per_s", "somatic", "golden",
-    "same_as_first"}}."""
+    """{engine: {"cold_s", "best_s", "w_per_s", "trial_s", "somatic",
+    "golden", "same_as_first"}}."""
     from ...engine.localgraph import process_window_batch
     from ...utils.device import resolve_device
     from ..workloads import make_window_payloads
@@ -66,9 +66,11 @@ def run(engines=tuple(ENGINES), windows: int = 256, trials: int = 3,
     out, first = {}, None
     for name in engines:
         recs, cold = once(ENGINES[name])
-        best = min(once(ENGINES[name])[1] for _ in range(trials))
+        trial_s = [once(ENGINES[name])[1] for _ in range(trials)]
+        best = min(trial_s)
         first = recs if first is None else first
         row = {"cold_s": cold, "best_s": best, "w_per_s": windows / best,
+               "trial_s": trial_s,
                "somatic": sum(1 for r in recs
                               if str(r[9]).endswith("EMOutput")),
                "golden": golden_count(recs, golden),

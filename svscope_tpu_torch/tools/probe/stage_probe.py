@@ -32,9 +32,10 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def stage_a_split(wins, device_poa, dev, threads=None):
+def stage_a_split(wins, device_poa, dev, threads=None, timing=None):
     """engine/localgraph._stage_a with its three parts timed: returns
-    (entries, ready, {"gates", "poa_msa", "featsel"} seconds)."""
+    (entries, ready, {"gates", "poa_msa", "featsel"} seconds).  `timing`
+    goes to poa_msa_batch (the device round's parts, ops/poa_batch)."""
     from ...engine import localgraph as lg
     from ...engine.decision import call_margin, find_non_same_site
     from ...utils import seq as sq
@@ -49,7 +50,8 @@ def stage_a_split(wins, device_poa, dev, threads=None):
         entries.append([win, None])
     t1 = time.perf_counter()
     msa_out = lg.poa_msa_batch(msa_jobs, use_device=device_poa,
-                               threads=threads, device=dev) \
+                               threads=threads, device=dev,
+                               timing=timing) \
         if msa_jobs else []
     _sync(dev)
     t2 = time.perf_counter()

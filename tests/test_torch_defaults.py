@@ -14,7 +14,7 @@ from svscope_tpu_torch.engine.decision import decision
 from svscope_tpu_torch.models import mixture
 from svscope_tpu_torch.ops import poa_batch, poa_fused
 from svscope_tpu_torch.parallel import dataparallel, shard
-from svscope_tpu_torch.tools import workloads
+from svscope_tpu_torch.tools import bench, workloads
 
 FEAT = np.random.default_rng(0).integers(0, 4, (8, 12)).astype(np.int8)
 SEQS = [["ACGTACGT", "ACGTTACGT", "ACGACGT"]]
@@ -39,6 +39,7 @@ CALLS = {
         process_count=1),
     "graft_entry.entry": lambda: graft_entry.entry(),
     "dryrun_multichip": lambda: graft_entry.dryrun_multichip(2),
+    "bench.run_measurement": lambda: bench.run_measurement(1, heavy=False),
 }
 
 

@@ -80,3 +80,4 @@ def test_e2e_probe_engines_agree_with_the_golden():
     for row in res.values():
         assert row["same_as_first"] == 2 and row["golden"] == 2
         assert row["somatic"] == 2
+        assert row["trial_s"] == [row["best_s"]]

@@ -58,7 +58,7 @@ def test_port_and_smoke_import_nothing_of_jax_package():
                      "svscope_tpu_torch.tools.multihost_demo"}
         assert scale_out <= set(names), scale_out - set(names)
         tools = {"svscope_tpu_torch.tools." + m for m in (
-            "genome_bench", "wgs_bench", "roofline", "bounds",
+            "bench", "genome_bench", "wgs_bench", "roofline", "bounds",
             "probe.core_scaling_probe", "probe.engine_ab",
             "probe.stage_probe", "probe.pipeline_probe",
             "probe.pk_phase_probe", "probe.e2e_probe", "probe.fused_probe")}
