@@ -7,7 +7,7 @@ Phases, each printed with its result and seconds; any failure exits
 non-zero before the final line:
 
   1. setup: CUDA required; card name and power limit; every kernel (K1 and
-     K1-int16, K2, K3, K4/K5, the three probes) is built from
+     K1-int16, K2, K3, K4/K5, K6, K7, the three probes) is built from
      svscope_tpu_torch/csrc/ with nvcc, one process per source, all at
      once, beside the g++ builds of the port's three host C++ engines
      (svscope_tpu_torch/csrc/host/).
@@ -46,6 +46,17 @@ non-zero before the final line:
      slots, sources past rank 0, a read longer than its graph, no sink) and
      on random graphs at the widest bucket, ncap 3073 with l_max 512 and
      2048.  Exact.
+  6b. pk-glue: K6 (csrc/poa_pk_prep.cu: the round's group-Kahn re-rank
+     and operands; its order mode the build's final order) and K7
+     (csrc/poa_pk_consensus.cu: the consensus walk) against their plain
+     versions (ops/poa_fused.pk_round_prep_reference, toposort_reference,
+     consensus_walk_reference) on every round pk-parity captured (K6 also
+     == the operands the build recorded) and on glue_edge_case's windows
+     at ncap 129, 1025 and 3073 (an empty graph, one node, 8 full
+     in-slots, two cyclic windows, an empty read, ncap - 1 nodes, columns
+     and branches): exact; then each timed (calls queued ahead of the
+     device) beside its plain version and its bound (tools/bounds.py), at
+     bench round 12 and heavy round 200.
   7. pk-time: each of K3, K4, K5 and its plain version on the bench batch
      the port launches (128 windows, round 12) and at the heavy capture
      (32 windows, round 200); the kernels' calls queued ahead of the device
@@ -53,12 +64,19 @@ non-zero before the final line:
      call at a time right after a fresh state clone, queued and with the
      host's issue.
   8. bench256 through process_window_batch(device_poa="fused"): golden
-     256/256, records equal the device-POA run's, K3 and K4 launched in
-     that run, no host fallback; warm windows/s best of 3; the MSA phase
-     split of one stage-A batch; then one run with SVSCOPE_PK_FUSION=seq:
-     golden 256/256 and K5 launched.
-  9. heavy32x400 fused: golden 32/32, windows/s (one run); K3's and K4's
-     main path is this run and bench256's (each counted from 0).
+     256/256, records equal the device-POA run's, K3, K4, K6 and K7
+     launched in that run, no host sync inside a build, no host fallback,
+     the pk launches a round; warm windows/s best of 3; the MSA phase
+     split of one stage-A batch with K6 and K7 and, in the same call,
+     with their plain versions (the build before them), each build's
+     device launches (torch.profiler), and the launches of a whole
+     bench256 fused run; then one run with SVSCOPE_PK_FUSION=seq: golden
+     256/256 and K5 launched.
+  9. heavy32x400 fused: golden 32/32, windows/s (one run); K3's, K4's,
+     K6's and K7's main path is this run and bench256's (each counted
+     from 0).  Every fused path below (dataprepare-fused, the dp run,
+     genome-bench-fused, the tools, bench) also fails on a host sync
+     inside a build and prints its pk launches a round.
  10. the CLI with `--device-poa fused`: Raw.bed sha256 equals the golden.
  11. k2-parity: K2 (csrc/nw_stats.cu) against its plain torch version at
      every bucket 128 ... 4096 under both score sets (MisScore (1, 0, -1),
@@ -167,14 +185,15 @@ non-zero before the final line:
 
 With `--ab TREE ...` (source trees' roots, relative to this script; "."
 is this checkout), K1 at the k1-time and heavy shapes, K2 at every
-misscore4096 bucket, K3, K4 and K5 on the bench round-12 and heavy
-round-200 captures, every row-probe variant at B=256, every fusion-body
+misscore4096 bucket, K3, K4, K5, K6 (both modes) and K7 on the bench
+round-12 and heavy round-200 captures, every row-probe variant at B=256, every fusion-body
 variant on the replayed states (a fresh state clone per call), and every
 int16 probe op at (262144, 128) with torch.maximum and torch.roll beside
 them are then timed in each tree's own build, a process per tree, on the
 same saved inputs, calls queued ahead, each tree twice in turns (phase
 `ab`).  A tree whose K3 still takes the
-chain-row flags gets them, rebuilt from the pk layout (chain_flags).
+chain-row flags gets them, rebuilt from the pk layout (chain_flags); a
+tree without K6 and K7 shows "-" for them.
 
 Then one JSON line listing every kernel with its launches on the main path,
 error, times and bound (a probe's row: the sums over its variants, which
@@ -182,7 +201,9 @@ it lists under "variants", with the library call's time where there is
 one; K1's, K2's, K3's and K4's rows add their launches per workload and
 new CLI path (launches_dataprepare, launches_chrom, launches_genome_bench,
 launches_bench, ...; launches_tools: the tools phase's, not in the
-totals), K1's the chrom
+totals; K3, K4, K6 and K7 alike), K6's its order mode's times and the
+Kahn steps a window, K6's the stage-A batch's fused build with the
+kernels and with their plain versions, K1's the chrom
 and genome runs' stage walls, K1's and
 the pk kernels' the heavy shape as timed, K4's and K5's their single-call
 times, K4's its serial-walk windows per round checked, K2's its time per
@@ -191,6 +212,7 @@ line, and the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX or of the JAX
 package (checked at the end).
 """
+import contextlib
 import hashlib
 import json
 import os
@@ -220,11 +242,22 @@ PK_KERNELS = {
     "K5": ("fusion seq (K5, pk round: graph fusion, the serial walk, a warp "
            "per window)", "poa_pk_fusion.cu",
            "svscope_tpu/ops/poa_fused_kernel.py:438"),
+    # not Pallas kernels: the XLA loops the JAX package keeps on the device
+    "K6": ("round prep (K6, pk round: the group-Kahn re-rank and the "
+           "operands of K3 and the fusion, a block per window; its order "
+           "mode the build's final order)", "poa_pk_prep.cu",
+           "svscope_tpu/ops/poa_fused.py:139"),
+    "K7": ("consensus walk (K7, pk build: the heaviest-bundle walk, a block "
+           "per window)", "poa_pk_consensus.cu",
+           "svscope_tpu/ops/poa_fused.py:585"),
 }
+PK_GLUE = ("K6", "K7")
+PK_MAIN = ("K3", "K4", "K6", "K7")     # the fused build's default kernels
 PK_BENCH_ROUNDS = (0, 11, 23)      # rounds 1, 12 and 24
 PK_HEAVY_ROUND = 199               # round 200
 PK_NCAP_MAX = 3073                 # the widest pk bucket (N_LADDER[-1] + 1)
 PK_WIDE_SHAPES = ((512, 32), (2048, 8))   # (l_max, B) of K3 at that ncap
+GLUE_NCAPS = (129, 1025, PK_NCAP_MAX)      # K6's and K7's edge states
 INT16_ROWS = 262144                # the int16 probe's timing arrays
 # The row probe's layout edges (B, nrows, l1): one window, more windows
 # than SMs, one row, and rows of 1, 33, 1025 and 4096 columns (K1's tiles a
@@ -535,6 +568,103 @@ def fusion_edge_case(ncap=48, l_max=40):
                                          ovf)
 
 
+GLUE_EDGE_CASES = ("empty graph", "one node", "8 full in-slots",
+                   "a back edge (cyclic)", "an empty read",
+                   "two back edges (cyclic)", "ncap - 1 nodes",
+                   "columns and branches")
+
+
+def glue_edge_case(ncap, l_max=64, seed=0):
+    """Hand-built window states at the edges of K6 and K7 (numpy), B = 8,
+    one case per window (GLUE_EDGE_CASES), shaped as fusion leaves them: a
+    backbone chain, then nodes with larger ids that either join a backbone
+    node's column as its alternative (preds and successors around it) or
+    are insertions between two backbone nodes (their own column, an edge
+    into a smaller column id: what makes the Kahn loop take more steps),
+    backbone skip edges, weights 1-24 and each window's edge stamps a
+    permutation.  0, n = 0; 1, n = 1; 2, n = ncap / 2 and a node whose 8
+    pred slots are all used; 3, one backbone back edge closing a cycle;
+    4, a read of length 0; 5, two back edges; 6, n = ncap - 1 (the trash
+    row's edge); 7, many columns and branches.  Rows past n hold
+    GraphState.empty's pattern.  Returns a dict: pn, pw, pt, gc, ch, gm,
+    nn, tctr, ovf (GraphState's fields) and seq (B, l_max), slen (B,),
+    int32."""
+    import numpy as np
+    rng = np.random.default_rng(1000 * seed + ncap)
+    B = 8
+    pn = np.full((B, ncap, 8), -1, np.int32)
+    pw = np.zeros((B, ncap, 8), np.int32)
+    pt = np.zeros((B, ncap, 8), np.int32)
+    gm = np.tile(np.arange(ncap, dtype=np.int32), (B, 1))
+    ch = np.zeros((B, ncap), np.int32)
+    nn = np.zeros(B, np.int32)
+    slen = rng.integers(1, l_max + 1, B).astype(np.int32)
+    seq = rng.integers(0, 5, (B, l_max)).astype(np.int32)
+
+    def add(w, head, tail):
+        row = pn[w, head]
+        free = np.flatnonzero(row < 0)
+        if free.size and not (row == tail).any():
+            row[free[0]] = tail
+
+    def graph(w, n, branch=0.3, skips=0, back=0, full=False):
+        nn[w] = n
+        ch[w, :n] = rng.integers(0, 5, n)
+        m = max(n - int(branch * n), min(n, 4))       # the backbone
+        for v in range(1, m):
+            pn[w, v, 0] = v - 1
+        for x in range(m, n):
+            i = int(rng.integers(1, m - 1))
+            if rng.random() < 0.5:                    # i's alternative
+                gm[w, x] = gm[w, i]
+                add(w, x, i - 1)
+            else:                                     # an insertion
+                add(w, x, i)
+            add(w, i + 1, x)
+        for _ in range(skips if m > 2 else 0):
+            a = int(rng.integers(0, m - 2))
+            add(w, int(rng.integers(a + 2, m)), a)
+        if full:
+            v = m // 2
+            for t in rng.permutation(v - 1):
+                add(w, v, int(t))
+            assert (pn[w, v] >= 0).all()
+        for _ in range(back):
+            a = int(rng.integers(0, m - 3))
+            add(w, a, int(rng.integers(a + 2, m)))
+        live = (pn[w, :n] >= 0)
+        pw[w, :n][live] = rng.integers(1, 25, int(live.sum()))
+        pt[w, :n][live] = rng.permutation(int(live.sum()))
+    graph(0, 0)
+    graph(1, 1)
+    graph(2, ncap // 2, skips=ncap // 16, full=True)
+    graph(3, ncap // 2, skips=ncap // 16, back=1)
+    graph(4, ncap // 3, skips=ncap // 16)
+    slen[4] = 0
+    graph(5, ncap // 2, skips=ncap // 8, back=2)
+    graph(6, ncap - 1, skips=ncap // 16)
+    graph(7, 3 * ncap // 4, branch=0.5, skips=ncap // 4)
+    seq[np.arange(l_max)[None, :] >= slen[:, None]] = 0
+    gc = np.full((B, ncap, 5), -1, np.int32)
+    tctr = (pn >= 0).sum((1, 2)).astype(np.int32)
+    return {"pn": pn, "pw": pw, "pt": pt, "gc": gc, "ch": ch, "gm": gm,
+            "nn": nn, "tctr": tctr, "ovf": np.zeros(B, np.int32),
+            "seq": seq, "slen": slen}
+
+
+def glue_edge_tensors(ncap, dev, l_max=64, seed=0):
+    """glue_edge_case's windows on `dev`: (GraphState, seq, slen)."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    c = glue_edge_case(ncap, l_max, seed)
+
+    def t(a):
+        return torch.from_numpy(a).to(dev)
+    return (tpk.GraphState(*[t(c[f]) for f in (
+        "pn", "pw", "pt", "gc", "ch", "gm", "nn", "tctr", "ovf")]),
+            t(c["seq"]), t(c["slen"]))
+
+
 def chain_flags(predsp, nn_eff):
     """The chain-row flags that JAX's align_tb_call (and K3 before it
     found chain rows itself) takes, from pk-layout preds (numpy): one pred
@@ -842,6 +972,33 @@ def pk_compare(ops, st, an, asx, ke):
     return {"K3": _max_err(k3, p3), **errs}, flags
 
 
+def glue_compare(st, seq, slen, build_ops=None):
+    """K6 (its prep mode with the ovf update, on a clone, and its order
+    mode) and K7 (on the plain order) against their plain versions on one
+    window batch; with build_ops, K6's operands also against those a build
+    recorded for this state.  Returns ({"K6", "K7": max abs error}, the
+    number of cyclic windows)."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused as tpf
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    got_st, want_st = st.clone(), st.clone()
+    ops, cyc = tpk.round_prep_cuda(got_st, seq, slen, update_ovf=True)
+    order, rank, cyc2 = tpk.toposort_cuda(st.pn, st.gm, st.nn)
+    torch.cuda.synchronize()
+    w_ops, w_cyc = tpf.pk_round_prep_reference(want_st, seq, slen)
+    want_st.ovf |= w_cyc.to(torch.int32)
+    w_order, w_rank, w_cyc2 = tpf.toposort_reference(st.pn, st.gm, st.nn)
+    k6 = _max_err([*ops, cyc, got_st.ovf, order, rank, cyc2],
+                  [*w_ops, w_cyc, want_st.ovf, w_order, w_rank, w_cyc2])
+    if build_ops is not None:
+        k6 = max(k6, _max_err(ops, build_ops))
+    walk = tpk.consensus_cuda(st.pn, st.pw, st.pt, st.nn, w_order)
+    torch.cuda.synchronize()
+    k7 = _max_err(walk, tpf.consensus_walk_reference(
+        st.ch, st.pn, st.pw, st.pt, st.nn, w_order))
+    return {"K6": k6, "K7": k7}, int(w_cyc.sum())
+
+
 def fusion_edge_tensors(dev):
     """fusion_edge_case's round as tensors on `dev`: (an, asx, ke, gminr,
     seqs5) and the GraphState."""
@@ -871,13 +1028,13 @@ def check_pk_kernels(dev):
     on the fusion edge states, K4's serial-walk windows == the model's on
     all of them; K3 == plain on the edge windows and on random graphs at
     N = 3073.  Returns the max error per kernel, the bench round-12 and
-    heavy round-200 captures for phase 7, and K4's serial-walk windows per
-    round checked."""
+    heavy round-200 captures for phase 7, K4's serial-walk windows per
+    round checked, and every capture by name (for pk-glue)."""
     import localgraph_golden as lgg
     max_err = {"K3": 0, "K4": 0, "K5": 0}
     cases = (("bench256", PK_BATCH, PK_BENCH_ROUNDS),
              ("heavy32x400", None, (PK_HEAVY_ROUND,)))
-    keep, serial_walks = {}, {}
+    keep, serial_walks, every = {}, {}, {}
 
     def check(errs, flags, what):
         if any(errs.values()) or flags[0] != flags[1]:
@@ -894,6 +1051,7 @@ def check_pk_kernels(dev):
                                       dev)
         for r in rounds:
             ops, st, an, asx, ke = caps[r]
+            every[f"{name} round {r + 1}"] = caps[r]
             errs, flags = pk_compare(ops, st, an, asx, ke)
             check(errs, flags, f"{name} round {r + 1}")
             phase("pk-parity", t0, f"{name} bucket (R, L, N)={bucket} "
@@ -930,7 +1088,86 @@ def check_pk_kernels(dev):
         phase("pk-parity", t0, f"K3 random graphs N={PK_NCAP_MAX} "
               f"l_max={l_max} B={B} (nodes {int(arrs[3].min())}-"
               f"{int(arrs[3].max())}): K3==plain")
-    return max_err, keep["bench256"], keep["heavy32x400"], serial_walks
+    return max_err, keep["bench256"], keep["heavy32x400"], serial_walks, \
+        every
+
+
+def check_glue(dev, caps, bench_cap, heavy_cap):
+    """Phase pk-glue: K6 (prep mode with the ovf update, and order mode)
+    and K7 against their plain versions, and K6 against the operands the
+    build recorded, on every captured round (`caps`, pk-parity's), then on
+    glue_edge_case's windows at ncap 129, 1025 and 3073 (cyclic states
+    included): exact.  Then each timed, the kernels' calls queued ahead of
+    the device, the plain versions as they run, on the bench round-12 and
+    heavy round-200 captures, beside their bounds (tools/bounds.py).
+    Returns ({kernel: max error}, {name: (ms, plain ms)}, {name: bound},
+    {name: Kahn steps a window, mean and max})."""
+    from svscope_tpu_torch.ops import poa_fused as tpf
+    from svscope_tpu_torch.ops import poa_fused_kernel as tpk
+    from svscope_tpu_torch.tools.bounds import consensus_bound, prep_bound
+    from svscope_tpu_torch.tools.timing import time_call
+    max_err = {k: 0 for k in PK_GLUE}
+
+    def check(errs, what):
+        if any(errs.values()):
+            raise RuntimeError(f"K6/K7 != plain on {what}: {errs}")
+        for k in max_err:
+            max_err[k] = max(max_err[k], errs[k])
+    t0 = time.perf_counter()
+    for what, (ops, st, _an, _asx, _ke) in caps.items():
+        errs, n_cyc = glue_compare(st, ops[3][:, 1:].contiguous(), ops[4],
+                                   build_ops=ops)
+        check(errs, what)
+        phase("pk-glue", t0, f"{what} B={st.nn.shape[0]} ncap="
+              f"{st.ch.shape[1]}: K6 (prep, order) == plain == the build's "
+              f"operands, K7 == plain (errors {errs}); cyclic windows "
+              f"{n_cyc}")
+    for ncap in GLUE_NCAPS:
+        t0 = time.perf_counter()
+        st, seq, slen = glue_edge_tensors(ncap, dev)
+        errs, n_cyc = glue_compare(st, seq, slen)
+        check(errs, f"edge states ncap={ncap}")
+        if n_cyc != 2:
+            raise RuntimeError(f"edge states ncap={ncap}: {n_cyc} cyclic "
+                               "windows, expected 2")
+        phase("pk-glue", t0, f"edge states B=8 ncap={ncap} "
+              f"({'; '.join(GLUE_EDGE_CASES)}): K6 == plain, K7 == plain "
+              f"(errors {errs}); cyclic windows {n_cyc}")
+    t0 = time.perf_counter()
+    times, bounds, steps = {}, {}, {}
+    for sfx, cap, reps in (("", bench_cap, 2), (" heavy", heavy_cap, 1)):
+        ops, st = cap[0], cap[1]
+        seq, slen = ops[3][:, 1:].contiguous(), ops[4]
+        l_max = seq.shape[1]
+        order = tpf.toposort_reference(st.pn, st.gm, st.nn)[0]
+        times["K6" + sfx] = (
+            time_call(lambda: tpk.round_prep_cuda(st, seq, slen), dev, 20,
+                      True),
+            time_call(lambda: tpf.pk_round_prep_reference(st, seq, slen),
+                      dev, reps, False))
+        times["K6 order" + sfx] = (
+            time_call(lambda: tpk.toposort_cuda(st.pn, st.gm, st.nn), dev,
+                      20, True),
+            time_call(lambda: tpf.toposort_reference(st.pn, st.gm, st.nn),
+                      dev, reps, False))
+        times["K7" + sfx] = (
+            time_call(lambda: tpk.consensus_cuda(st.pn, st.pw, st.pt, st.nn,
+                                                 order), dev, 20, True),
+            time_call(lambda: tpf.consensus_walk_reference(
+                st.ch, st.pn, st.pw, st.pt, st.nn, order), dev, 1, False))
+        bounds["K6" + sfx], k = prep_bound(st.pn, st.gm, st.nn, l_max)
+        bounds["K6 order" + sfx] = prep_bound(st.pn, st.gm, st.nn, l_max,
+                                              order_only=True)[0]
+        bounds["K7" + sfx] = consensus_bound(st.pn, st.nn, st.ch.shape[1])
+        steps["K6" + sfx] = (float(k.mean()), int(k.max()))
+    phase("pk-glue-time", t0, "bench round 12 (B=128, ncap 1025) and heavy "
+          "round 200 (B=32, ncap 3073) captures; kernel calls queued ahead "
+          "of the device: " + ", ".join(
+              f"{k} kernel {a:.4f} ms plain {b:.4f} ms bound "
+              f"{bounds[k][0]:.6f} ms ({bounds[k][1]})" for k, (a, b) in
+              times.items()) + "; Kahn steps a window (mean, max) "
+          + ", ".join(f"{k} {v[0]:.1f}, {v[1]}" for k, v in steps.items()))
+    return max_err, times, bounds, steps
 
 
 def k3_args(cap):
@@ -1048,9 +1285,10 @@ def time_pk_kernels(bench_cap, heavy_cap, dev):
 
 
 def run_fused_workload(name, golden, dev, runs, device_recs=None,
-                       need=("K3", "K4")):
+                       need=PK_MAIN):
     """Phases 8/9: the workload with device_poa="fused"; each kernel of
-    `need` must have launched in the run, the others not at all."""
+    `need` must have launched in the run, the others not at all, and no
+    build may have checked the host (COUNTS["host_syncs"] 0)."""
     import torch
     import localgraph_golden as lgg
     from svscope_tpu_torch.engine.localgraph import (process_window_batch,
@@ -1074,6 +1312,9 @@ def run_fused_workload(name, golden, dev, runs, device_recs=None,
         if tpf.COUNTS["fallbacks"]:
             raise RuntimeError(f"{name} fused: {tpf.COUNTS['fallbacks']} "
                                "windows fell back to the host engine")
+        if tpf.COUNTS["host_syncs"]:
+            raise RuntimeError(f"{name} fused: {tpf.COUNTS['host_syncs']} "
+                               "host syncs inside the builds")
         return recs, dt, dict(tpk.LAUNCHES), dict(tpf.COUNTS)
 
     t0 = time.perf_counter()
@@ -1084,8 +1325,9 @@ def run_fused_workload(name, golden, dev, runs, device_recs=None,
         raise RuntimeError(f"{name} fused: main path launches {launches}, "
                            f"expected {need} only")
     phase(name + "-fused", t0, f"golden {len(want)}/{len(want)}, launches "
-          f"{launches}, counts {counts}, host fallbacks 0, run "
-          f"{cold:.3f} s ({len(wins) / cold:.3f} w/s)")
+          f"{launches} ({pk_per_round(launches, counts)} a round), counts "
+          f"{counts}, host syncs 0, host fallbacks 0, run {cold:.3f} s "
+          f"({len(wins) / cold:.3f} w/s)")
     secs = [cold]
     if runs > 1:
         t0 = time.perf_counter()
@@ -1101,21 +1343,75 @@ def run_fused_workload(name, golden, dev, runs, device_recs=None,
     return launches, recs, len(wins) / min(secs)
 
 
+def pk_per_round(launches, counts):
+    """The pk kernels' launches a build round, as text."""
+    n = sum(launches.get(k, 0) for k in ("K3", "K4", "K5", *PK_GLUE))
+    return f"{n / counts['rounds']:.3f}" if counts.get("rounds") else "-"
+
+
+@contextlib.contextmanager
+def plain_glue():
+    """The fused build with K6's and K7's plain versions on the card in
+    place of the kernels (the build before them), for comparisons made
+    within one call."""
+    import torch
+    from svscope_tpu_torch.ops import poa_fused as tpf
+    saved = (tpf.round_prep_cuda, tpf.toposort_cuda, tpf.consensus_cuda)
+
+    def prep(st, seq, slen, update_ovf=False):
+        ops, cyc = tpf.pk_round_prep_reference(st, seq, slen)
+        if update_ovf:
+            st.ovf |= cyc.to(torch.int32)
+        return ops, cyc
+    tpf.round_prep_cuda = prep
+    tpf.toposort_cuda = tpf.toposort_reference
+    tpf.consensus_cuda = lambda pn, pw, pt, nn, order: \
+        tpf.consensus_walk_reference(None, pn, pw, pt, nn, order)
+    try:
+        yield
+    finally:
+        tpf.round_prep_cuda, tpf.toposort_cuda, tpf.consensus_cuda = saved
+
+
 def fused_phase_split(dev):
     """Phase 8: seconds per phase of the fused build of one stage-A batch
-    (the device is synchronised at each phase boundary)."""
+    (the device is synchronised at each phase boundary), with K6 and K7
+    and then, in the same call, with their plain versions (the build
+    before them); each build's device launches and copies
+    (torch.profiler, a run of its own) and host syncs; and the launches of
+    one whole bench256 fused run (process_window_batch).  Returns
+    {mode: {"timing", "counts", "launches", "copies"}}."""
     import torch
     import localgraph_golden as lgg
+    from svscope_tpu_torch.engine.localgraph import process_window_batch
     from svscope_tpu_torch.ops import poa_fused as tpf
     t0 = time.perf_counter()
-    jobs = [w.sequences for w in lgg.make_workload("bench256")[:PK_BATCH]]
-    timing = {}
-    tpf.reset_counts()
-    tpf.fused_msa_batch(jobs, device=dev, timing=timing)
-    torch.cuda.synchronize()
-    phase("bench256-fused-split", t0, f"stage-A batch of {len(jobs)}: "
-          + ", ".join(f"{k} {v:.4f} s" for k, v in timing.items())
-          + f"; counts {dict(tpf.COUNTS)}")
+    wins = lgg.make_workload("bench256")
+    jobs = [w.sequences for w in wins[:PK_BATCH]]
+    out = {}
+    for mode in ("kernels", "plain glue"):
+        with plain_glue() if mode == "plain glue" else contextlib.nullcontext():
+            timing = {}
+            tpf.reset_counts()
+            tpf.fused_msa_batch(jobs, device=dev, timing=timing)
+            torch.cuda.synchronize()
+            counts = dict(tpf.COUNTS)
+            n, copies = launches_profiled(
+                lambda: tpf.fused_msa_batch(jobs, device=dev))
+        out[mode] = {"timing": timing, "counts": counts, "launches": n,
+                     "copies": copies}
+        phase("bench256-fused-split", t0, f"{mode}: stage-A batch of "
+              f"{len(jobs)}: " + ", ".join(f"{k} {v:.4f} s" for k, v in
+                                          timing.items())
+              + f"; counts {counts}; device launches {n}, copies {copies} "
+              "(torch.profiler, a run of its own)")
+    whole, copies = launches_profiled(lambda: process_window_batch(
+        wins, device=dev, device_poa="fused"))
+    out["bench256"] = {"launches": whole, "copies": copies}
+    phase("bench256-fused-launches", t0, f"process_window_batch(bench256, "
+          f"fused): device launches {whole}, copies {copies} "
+          "(torch.profiler)")
+    return out
 
 
 def k2_pair(pairs, bucket, dev, scoring):
@@ -1341,11 +1637,11 @@ def check_aln_cli(dev):
 
 
 def path_launches(name, fn, need):
-    """Run fn() with the launch counts of K1, K2, K3/K4/K5 and the
-    host-DP and fused-fallback counts set to 0 just before; returns (fn's
-    result, {kernel: launches}).  Fails unless every kernel of `need`
-    launched, a pair went to the host DP or a window fell back to the host
-    POA engine."""
+    """Run fn() with the launch counts of K1, K2, K3-K7 and the host-DP,
+    fused-fallback and fused-build counts set to 0 just before; returns
+    (fn's result, {kernel: launches}).  Fails unless every kernel of
+    `need` launched, and if a pair went to the host DP, a window fell back
+    to the host POA engine or a fused build checked the host."""
     import torch
     from svscope_tpu_torch.ops import nw_batch, nw_kernel, poa_align
     from svscope_tpu_torch.ops import poa_fused as tpf
@@ -1363,10 +1659,16 @@ def path_launches(name, fn, need):
     if missing:
         raise RuntimeError(f"{name}: the main path launched no {missing} "
                            f"(launches {launches})")
-    if nw_batch.COUNTS["host_dp_pairs"] or tpf.COUNTS["fallbacks"]:
+    if nw_batch.COUNTS["host_dp_pairs"] or tpf.COUNTS["fallbacks"] \
+            or tpf.COUNTS["host_syncs"]:
         raise RuntimeError(f"{name}: host DP pairs "
                            f"{nw_batch.COUNTS['host_dp_pairs']}, fused "
-                           f"fallbacks {tpf.COUNTS['fallbacks']}")
+                           f"fallbacks {tpf.COUNTS['fallbacks']}, host syncs "
+                           f"inside fused builds {tpf.COUNTS['host_syncs']}")
+    if tpf.COUNTS["rounds"]:
+        print(f"  [{name}] fused builds: {tpf.COUNTS['rounds']} rounds, "
+              f"{pk_per_round(launches, tpf.COUNTS)} pk launches a round, "
+              "host syncs 0", flush=True)
     return out, launches
 
 
@@ -1384,7 +1686,7 @@ def check_dataprepare(dev):
     runs = {}
     for name, extra, need in (("dataprepare", (), ("K1", "K2")),
                               ("dataprepare-fused", ("--device-poa", "fused"),
-                               ("K3", "K4", "K2"))):
+                               (*PK_MAIN, "K2"))):
         t0 = time.perf_counter()
         out, launches = path_launches(
             name, lambda: dg.port_dataprepare(dev.type, extra), need)
@@ -1886,7 +2188,7 @@ def check_scale_out(golden, dev, bench_recs, heavy_recs):
     for mesh in meshes:
         tag = "" if mesh == meshes[0] else f"-{len(mesh)}gpu"
         for engine, need, ref_recs in (("pallas", ("K1",), bench_recs),
-                                       ("fused", ("K3", "K4"), bench_recs)):
+                                       ("fused", PK_MAIN, bench_recs)):
             name = f"dp-bench256-{engine}{tag}"
             t0 = time.perf_counter()
             _, base_s = _timed(lambda: tlg.process_window_batch(
@@ -1997,7 +2299,7 @@ def check_scale_out(golden, dev, bench_recs, heavy_recs):
         raise RuntimeError("graft entry: non-finite BICs")
     _out, launches = path_launches(
         "dryrun", lambda: graft_entry.dryrun_multichip(len(mesh), mesh),
-        ("K1", "K3", "K4"))
+        ("K1", *PK_MAIN))
     runs["dryrun"] = launches
     phase("dryrun", t0, f"entry (16, 32, 64) finite; dryrun_multichip("
           f"{len(mesh)}) over {[str(d) for d in mesh]} passed; launches "
@@ -2055,7 +2357,7 @@ def run_genome_bench(dev):
     out = {}
     for name, cfg, poa, need in (
             ("genome-bench", g["full"], None, ("K1", "K2")),
-            ("genome-bench-fused", g["small"], "fused", ("K3", "K4", "K2"))):
+            ("genome-bench-fused", g["small"], "fused", (*PK_MAIN, "K2"))):
         t0 = time.perf_counter()
         kw = {k: cfg[k] for k in gg.GENOME_FULL}
         with tempfile.TemporaryDirectory() as d:
@@ -2108,7 +2410,7 @@ def run_tools(dev, golden):
         if fp["identical"] != n_bench:
             raise RuntimeError(f"fused_probe: {fp['identical']} identical")
 
-    _, launches = path_launches("tools", tools, ("K1", "K2", "K3", "K4"))
+    _, launches = path_launches("tools", tools, ("K1", "K2", *PK_MAIN))
     phase("tools", t0, "wgs_bench (== JAX), roofline, engine_ab, "
           f"pipeline_probe, pk_phase_probe, fused_probe; launches "
           f"{launches}")
@@ -2127,7 +2429,7 @@ def run_bench(dev, golden):
         bench.N_WINDOWS, heavy=True, device=dev, golden=golden,
         engines=bench.ENGINES, log=lambda line: print("  " + line,
                                                        flush=True)),
-        ("K1", "K3", "K4"))
+        ("K1", *PK_MAIN))
     print("[bench] " + json.dumps(out), flush=True)
     heavy = out["heavy_tier"]
     counts = bench.golden_counts(out)
@@ -2171,6 +2473,20 @@ for name, (kind, args, width, reps) in torch.load(sys.argv[2]).items():
         out[name] = time_each(lambda: (*a[:5], pfk.GraphState(*[
             t.clone() for t in a[5:]]), width), pfk.fusion_cuda, dev, reps,
             queued=True)
+    elif kind in ("k6", "k6o", "k7"):
+        if not hasattr(pfk, "round_prep_cuda"):     # a tree before K6/K7
+            out[name] = None
+            continue
+        st = pfk.GraphState(*a[2:])
+        if kind == "k6":
+            fn = lambda: pfk.round_prep_cuda(st, a[0], a[1])
+        elif kind == "k6o":
+            fn = lambda: pfk.toposort_cuda(st.pn, st.gm, st.nn)
+        else:
+            order = pfk.toposort_cuda(st.pn, st.gm, st.nn)[0]
+            fn = lambda: pfk.consensus_cuda(st.pn, st.pw, st.pt, st.nn,
+                                            order)
+        out[name] = time_call(fn, dev, reps, queued=True)
     elif kind == "fbp":
         k0 = fusebody_probe.OUT_LEN - fusebody_probe.STEPS
         out[name] = time_each(lambda: (*a[:5], pfk.GraphState(*[
@@ -2217,6 +2533,9 @@ def ab_inputs(path, misscore_groups, misscore_pairs, pk_cases):
                                20)
         cases[f"k4 {name}"] = ("k4", fargs, "lockstep", 20)
         cases[f"k5 {name}"] = ("k5", fargs, "seq", 20)
+        glue = [fargs[4], args[4], *fargs[5:]]   # read, its length, state
+        for kind in ("k6", "k6o", "k7"):
+            cases[f"{kind} {name}"] = (kind, glue, 0, 20)
     chars, seqs = rp.make_inputs(rp.B, "cpu")
     for v in rp.VARIANTS:
         cases[f"row probe {v}"] = ("rowp", [chars, seqs], v, 5)
@@ -2229,6 +2548,11 @@ def ab_inputs(path, misscore_groups, misscore_pairs, pk_cases):
     for lib in ("torch.maximum", "torch.roll"):
         cases[f"i16 {lib}"] = (lib, big, 0, 20)
     torch.save(cases, path)
+
+
+def _ms(v):
+    """A time in ms as text; "-" for a case a tree does not have."""
+    return "-" if v is None else f"{v:.4f}"
 
 
 def run_ab(trees, misscore_groups, misscore_pairs, pk_cases):
@@ -2250,12 +2574,12 @@ def run_ab(trees, misscore_groups, misscore_pairs, pk_cases):
                                    f"{out.stderr[-3000:]}")
             times = json.loads(out.stdout.strip().splitlines()[-1])
             print(f"  [ab] {tree}: " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in times.items()), flush=True)
+                f"{k} {_ms(v)} ms" for k, v in times.items()), flush=True)
             for k, v in times.items():
                 res.setdefault(tree, {}).setdefault(k, []).append(v)
     phase("ab", t0, "ms per call, calls queued ahead, each tree twice: "
           + "; ".join(f"{k}: " + ", ".join(
-              f"{tree} {' / '.join(f'{v:.4f}' for v in res[tree][k])}"
+              f"{tree} {' / '.join(_ms(v) for v in res[tree][k])}"
               for tree in trees) for k in res[trees[0]]))
     return res
 
@@ -2327,8 +2651,14 @@ def main(argv=None):
     launches = bench_launches + heavy_launches
     check_cli(golden)
 
-    pk_err, bench_cap, heavy_cap, serial_walks = check_pk_kernels(dev)
+    pk_err, bench_cap, heavy_cap, serial_walks, caps = check_pk_kernels(dev)
+    glue_err, glue_ms, glue_bounds, glue_steps = check_glue(
+        dev, caps, bench_cap, heavy_cap)
+    del caps
     pk_ms, pk_bounds, pk_single = time_pk_kernels(bench_cap, heavy_cap, dev)
+    pk_err.update(glue_err)
+    pk_ms.update(glue_ms)
+    pk_bounds.update(glue_bounds)
     pk_ab = {}
     for name, r, cap in (("bench256", PK_BENCH_ROUNDS[1], bench_cap),
                          ("heavy32x400", PK_HEAVY_ROUND, heavy_cap)):
@@ -2342,11 +2672,12 @@ def main(argv=None):
     del bench_cap, heavy_cap
     pk_launches, _recs, _ws = run_fused_workload("bench256", golden, dev, 3,
                                                  bench_recs)
-    fused_phase_split(dev)
+    split = fused_phase_split(dev)
     os.environ["SVSCOPE_PK_FUSION"] = "seq"
     try:
         seq_launches, _recs, _ws = run_fused_workload(
-            "bench256", golden, dev, 1, bench_recs, need=("K3", "K5"))
+            "bench256", golden, dev, 1, bench_recs,
+            need=("K3", "K5", *PK_GLUE))
     finally:
         os.environ.pop("SVSCOPE_PK_FUSION")
     pk_launches["K5"] = seq_launches["K5"]
@@ -2408,8 +2739,9 @@ def main(argv=None):
                 "replaces": replaces, "launches": n, "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                 "bound_by": bnd[1], "library_ms": None}
-    # library_ms is null for K1-K5: no single PyTorch call computes a POA
-    # alignment, a POA graph fusion or NW alignment statistics; null for
+    # library_ms is null for K1-K7: no single PyTorch call computes a POA
+    # alignment, a POA graph fusion, a group-Kahn order, a heaviest-bundle
+    # walk or NW alignment statistics; null for
     # each probe as a whole (its variants list the int16 probe's
     # torch.maximum and torch.roll beside max16 and roll16).
     k1 = row("poa_align (K1, batched POA graph-vs-read NW)", "poa_align.cu",
@@ -2438,7 +2770,7 @@ def main(argv=None):
     for k, (name, src, replaces) in PK_KERNELS.items():
         entry = row(name, src, replaces, pk_launches[k], pk_err[k],
                     pk_ms[k][0], pk_ms[k][1], pk_bounds[k])
-        if k in ("K3", "K4"):
+        if k in PK_MAIN:
             # the main path: both fused workloads (lockstep, the default)
             # and DataPrepare with --device-poa fused
             fused_dp = new_paths["dataprepare-fused"][k]
@@ -2468,6 +2800,19 @@ def main(argv=None):
                 for sh, sfx in (("bench", ""), ("heavy", " heavy"))}
         if k == "K4":
             entry["serial_walk_windows"] = serial_walks
+        if k == "K6":
+            # its order mode (the build's final order) and the Kahn steps
+            entry["order_mode"] = {
+                sh: {"ms": pk_ms["K6 order" + sfx][0],
+                     "plain_ms": pk_ms["K6 order" + sfx][1],
+                     "bound_ms": pk_bounds["K6 order" + sfx][0],
+                     "bound_by": pk_bounds["K6 order" + sfx][1]}
+                for sh, sfx in (("bench", ""), ("heavy", " heavy"))}
+            entry["kahn_steps_mean_max"] = {"bench": glue_steps["K6"],
+                                            "heavy": glue_steps["K6 heavy"]}
+            # one stage-A batch's fused build, with the kernels and with
+            # their plain versions (the build before them), same call
+            entry["bench256_batch_build"] = split
         kernels.append(entry)
     k2 = row(K2_NAME, "nw_stats.cu", K2_REPLACES, k2_launches, k2_err, k2_ms,
              k2_plain_ms, k2_bnd)

@@ -103,8 +103,23 @@ struct Graph {
   }
 
   // move a just-created node (always the newest — its singleton group is
-  // the last) into the aligned column of col_node
+  // the last) into the aligned column of col_node.  Anything else would
+  // leave dangling group ids and a wrong group in-degree (a truncated
+  // order), so a call that breaks the invariant aborts the process.
   void join_group(int node, int col_node) {
+    const int32_t last = (int32_t)gmembers.size() - 1;
+    if (node != n_nodes() - 1 || group[node] != last ||
+        gmembers.back().size() != 1 || !gout.back().empty() ||
+        gindeg.back() != 0) {
+      std::fprintf(stderr,
+                   "poa_engine: join_group(%d, %d) on a node that is not the "
+                   "newest edgeless singleton (nodes %d, its group %d of %d, "
+                   "members %d, out-groups %d, in-degree %d)\n",
+                   node, col_node, n_nodes(), (int)group[node], (int)last + 1,
+                   (int)gmembers.back().size(), (int)gout.back().size(),
+                   (int)gindeg.back());
+      std::abort();
+    }
     gmembers.pop_back();
     gout.pop_back();
     gindeg.pop_back();

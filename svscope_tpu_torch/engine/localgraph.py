@@ -276,10 +276,10 @@ def run_local_graph(window_records: list[str], reference: str,
     replacement for the reference's 6-process window pool: True = every
     local CUDA device, a sequence = those devices, None or False = off.
     Off by default, even with several GPUs: no multi-GPU run has shown a
-    gain yet, the read-parallel EM issues a window's launches one by one
-    from the host, and the fused build's host syncs keep its parts from
-    running at once.  The mesh is cleared when the run ends, so no later
-    call inherits it."""
+    gain yet and the read-parallel EM issues a window's launches one by
+    one from the host (the fused build reads nothing back before its
+    fetch, so its parts are all enqueued first).  The mesh is cleared when
+    the run ends, so no later call inherits it."""
     from ..parallel.dataparallel import data_mesh_installed, make_dp_mesh
     dev = resolve_device(device)
     device_poa = resolve_device_poa(device_poa, dev)

@@ -5,18 +5,25 @@ The per-round device path (ops/poa_batch.py) sends every graph to the host
 each round: C++ pack, copies, C++ fuse.  Here the graphs stay on the device
 for the whole build.  Each read round of a window batch is:
 
-  1. `pk_round_prep` (torch ops): the canonical group-aware Kahn order
-     (`toposort`), the rank-space view of every graph (chars, preds with
-     empty slots copied from slot 0, sinks, pre-round column ids) and the
-     read staged for the aligner;
+  1. `pk_round_prep` (K6, `poa_fused_kernel.round_prep_cuda`): the
+     canonical group-aware Kahn order (`toposort`), the rank-space view of
+     every graph (chars, preds with empty slots copied from slot 0, sinks,
+     pre-round column ids), the read staged for the aligner and the
+     overflow flag of a cyclic graph;
   2. K3 (`poa_fused_kernel.align_tb`): the DP and the traceback;
   3. K4 or K5 (`poa_fused_kernel.fusion`): the alignment fused into the
      graph state in place, and the read's node path.
 
-The host drives the round loop up to the batch's largest read count; state
-stays on the device.  After the last round: one more `toposort`, the
-heaviest-bundle `consensus_walk`, one copy to the host, and `emit_window`
-(numpy) turns each window's state into (consensus, msa_rows).  Results are
+The host issues the round loop up to the batch's largest read count (from
+numpy), three launches a round; state stays on the device and nothing is
+read back until the build is done.  After the last round: one more
+`toposort` (K6's order mode), the heaviest-bundle `consensus_walk` (K7),
+one copy to the host, and `emit_window` (numpy) turns each window's state
+into (consensus, msa_rows).  On CPU tensors each kernel's plain version
+runs instead (`toposort_reference`, `pk_round_prep_reference`,
+`consensus_walk_reference` here; those of K3 and K4/K5 in
+poa_fused_kernel): the Kahn loop and the walks as torch ops driven from
+the host, which count their steps and host checks in COUNTS.  Results are
 identical to ops/poa.poa and the C++ engine (the same scoring, the same
 group-Kahn order, the same fusion rules and consensus tie-breaks).
 
@@ -46,7 +53,8 @@ import torch
 
 from ..parallel.dataparallel import shard_batch
 from .poa_device import MAX_PREDS
-from .poa_fused_kernel import ALPHA5, GraphState, align_tb, fusion
+from .poa_fused_kernel import (ALPHA5, GraphState, align_tb, consensus_cuda,
+                               fusion, round_prep_cuda, toposort_cuda)
 from ..utils.device import resolve_device
 
 log = logging.getLogger("svscope_tpu_torch.poa_fused")
@@ -61,6 +69,7 @@ N_LADDER = (128, 256, 512, 1024, 2048, 3072)
 L_LADDER = (64, 128, 256, 512, 1024, 2048)
 # device bytes one chunk of windows may take (see window_bytes)
 BUDGET_BYTES = 4 << 30
+# the plain versions' host checks (K6 and K7 make none)
 KAHN_CHECK_EVERY = 8     # Kahn steps between two host convergence checks
 WALK_CHECK_EVERY = 64    # consensus walk steps between two checks
 
@@ -131,7 +140,24 @@ def kahn_step(st, is_grp, ev, tails, heads, ids, it: int):
     return (grp_placed | place, it_placed), place
 
 
+def _on(t, what: str) -> bool:
+    """True for a CUDA tensor (the kernel), False for a CPU one (the plain
+    version); raises for any other device."""
+    if t.device.type in ("cuda", "cpu"):
+        return t.device.type == "cuda"
+    raise ValueError(f"{what}: unsupported device {t.device}")
+
+
 def toposort(pn, gm, nn, check_every: int = KAHN_CHECK_EVERY):
+    """Group-aware Kahn order of every window's graph: K6's order mode on
+    CUDA tensors, toposort_reference (with `check_every`) on CPU ones.
+    Returns (order, rank, cyclic)."""
+    if _on(gm, "toposort"):
+        return toposort_cuda(pn, gm, nn)
+    return toposort_reference(pn, gm, nn, check_every)
+
+
+def toposort_reference(pn, gm, nn, check_every: int = KAHN_CHECK_EVERY):
     """Group-aware Kahn order of every window's graph (`_toposort` of the
     JAX package: aligned columns emit adjacently, members in id order,
     the smallest ready column id first), batched over windows.
@@ -175,7 +201,19 @@ def toposort(pn, gm, nn, check_every: int = KAHN_CHECK_EVERY):
 
 # ---------------------------------------------------------- round prep ----
 
-def pk_round_prep(st: GraphState, seq, slen):
+def pk_round_prep(st: GraphState, seq, slen, update_ovf: bool = False):
+    """Operands of one round's kernels: K6 on CUDA tensors,
+    pk_round_prep_reference on CPU ones.  With update_ovf, st.ovf |= cyclic
+    (in K6's launch on the card)."""
+    if _on(st.ch, "pk_round_prep"):
+        return round_prep_cuda(st, seq, slen, update_ovf)
+    ops, cyclic = pk_round_prep_reference(st, seq, slen)
+    if update_ovf:
+        st.ovf |= cyclic.to(torch.int32)
+    return ops, cyclic
+
+
+def pk_round_prep_reference(st: GraphState, seq, slen):
     """Operands of one round's kernels (`_pk_round_prep` of the JAX
     package, without its TPU packing and its chain flags, which only the
     TPU kernel reads): returns (ops, cyclic) with ops = (charsr, sinksr,
@@ -187,7 +225,7 @@ def pk_round_prep(st: GraphState, seq, slen):
     dev = st.ch.device
     l_max = seq.shape[1]
     i32 = torch.int32
-    order, rank, cyclic = toposort(st.pn, st.gm, st.nn)
+    order, rank, cyclic = toposort_reference(st.pn, st.gm, st.nn)
     pnc = st.pn.long().clamp(0, ncap - 1)
     rank_of = torch.where(st.pn >= 0,
                           rank.gather(1, pnc.reshape(B, -1)).reshape(
@@ -213,6 +251,15 @@ def pk_round_prep(st: GraphState, seq, slen):
 # ----------------------------------------------------------- consensus ----
 
 def consensus_walk(ch, pn, pw, pt, nn, order):
+    """Heaviest-bundle consensus path of every window: K7 on CUDA tensors,
+    consensus_walk_reference on CPU ones (`ch` is not read: the path is
+    node ids)."""
+    if _on(pn, "consensus_walk"):
+        return consensus_cuda(pn, pw, pt, nn, order)
+    return consensus_walk_reference(ch, pn, pw, pt, nn, order)
+
+
+def consensus_walk_reference(ch, pn, pw, pt, nn, order):
     """Heaviest-bundle consensus path of every window (`_consensus_walk`
     of the JAX package): scores in rank order, back from the first
     max-score node over best in-edges, forward over heaviest out-edges.
@@ -313,6 +360,12 @@ def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cuda",
     yet fetched): ch, gm, nn, path (B, R, l_max), order, back_buf,
     back_start, fwd_buf, fwd_cnt, overflow (B,) bool.
 
+    The reads go up round-major as int32 (R, B, l_max), so a round's read
+    is one contiguous slice that K6 stages and the fusion reads, and each
+    round's path is written into its slice of one (R, B, l_max) buffer
+    (returned as its (B, R, l_max) view): on the card a round is K6, K3
+    and K4/K5, and the build reads nothing back before the fetch.
+
     round_hook(r, ops, state, an, asx, ke), when given, is called after
     K3 and before the fusion of round r (it sees the real operands of
     both kernels); `timing`, when a dict, gets seconds per phase (the
@@ -320,33 +373,34 @@ def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cuda",
     dev = resolve_device(device)
     B, R, l_max = seqs.shape
     ph = _Phases(timing, dev)
-    seqs_d = torch.from_numpy(np.ascontiguousarray(seqs)).to(dev)
-    lens_d = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(dev)
+    seqs_d = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(seqs, (1, 0, 2)), np.int32)).to(dev)
+    lens_d = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(lens), np.int32)).to(dev)
     st = GraphState.empty(B, ncap, dev)
-    path = torch.full((B, R, l_max), -1, dtype=torch.int32, device=dev)
+    path = torch.full((R, B, l_max), -1, dtype=torch.int32, device=dev)
     rounds = int(np.max(n_seqs)) if B else 0
     ph.mark("upload")
     for r in range(rounds):
-        seq = seqs_d[:, r].to(torch.int32)
-        slen = lens_d[:, r].contiguous()
-        ops, cyclic = pk_round_prep(st, seq, slen)
-        st.ovf |= cyclic.to(torch.int32)
+        seq = seqs_d[r]
+        ops, _cyclic = pk_round_prep(st, seq, lens_d[r], update_ovf=True)
         ph.mark("prep")
         *k3_ops, gminr = ops
         an, asx, ke = align_tb(*k3_ops)
         ph.mark("align")
         if round_hook is not None:
             round_hook(r, ops, st, an, asx, ke)
-        path[:, r] = fusion(an, asx, ke, gminr, seq, st)
+        fusion(an, asx, ke, gminr, seq, st, out=path[r])
         ph.mark("fusion")
     _count("rounds", rounds)
     order, _rank, cyclic = toposort(st.pn, st.gm, st.nn)
     overflow = (st.ovf > 0) | cyclic
     walk = consensus_walk(st.ch, st.pn, st.pw, st.pt, st.nn, order)
     ph.mark("consensus")
-    out = {"ch": st.ch, "gm": st.gm, "nn": st.nn, "path": path,
-           "order": order, "back_buf": walk[0], "back_start": walk[1],
-           "fwd_buf": walk[2], "fwd_cnt": walk[3], "overflow": overflow}
+    out = {"ch": st.ch, "gm": st.gm, "nn": st.nn,
+           "path": path.permute(1, 0, 2), "order": order,
+           "back_buf": walk[0], "back_start": walk[1], "fwd_buf": walk[2],
+           "fwd_cnt": walk[3], "overflow": overflow}
     return fetch_build(out, timing, dev) if fetch else out
 
 
@@ -403,13 +457,14 @@ def _bucket(x, ladder):
 
 def window_bytes(ncap: int, l_max: int, r_max: int) -> int:
     """Device bytes one window takes in a build: K3's H (int32) and
-    direction (int8) planes, the graph state, the toposort edge lists and
-    their temporaries (int64), the paths and the reads."""
+    direction (int8) planes, the graph state, the plain toposort's edge
+    lists and their temporaries (int64), the paths and the reads (int32
+    each)."""
     l1 = l_max + 1
     planes = (ncap + 1) * l1 * 4 + ncap * l1
     state = ncap * (3 * MAX_PREDS + ALPHA5 + 2) * 4
     edges = 6 * ncap * MAX_PREDS * 8
-    return planes + state + edges + r_max * l_max * 5
+    return planes + state + edges + r_max * l_max * 8
 
 
 def plan_buckets(seq_lists: list[list[str]]):
@@ -472,7 +527,9 @@ def fused_msa_batch(seq_lists: list[list[str]], device="cuda",
             seqs_a, lens_a, nseq_a = chunk_arrays(chunk, encoded, rb, lb)
             # the window axis splits over the installed data mesh (a chunk
             # it does not divide runs whole on its first device); every
-            # part is built before any is fetched
+            # part's build is enqueued before any is fetched, and a build
+            # on the card reads nothing back, so the parts' devices run
+            # together
             parts = [(dev, build_batch_pk(*arrs, ncap=ncap, device=dev,
                                           timing=timing, fetch=False))
                      for dev, arrs in shard_batch((seqs_a, lens_a, nseq_a),

@@ -1,5 +1,5 @@
-"""The two kernels of one round of the fused `pk` MSA build, and their
-plain torch versions (counterpart of svscope_tpu/ops/poa_fused_kernel.py).
+"""The kernels of the fused `pk` MSA build, and the plain torch versions
+of K3 and K4/K5 (counterpart of svscope_tpu/ops/poa_fused_kernel.py).
 
   * K3 `align_tb` (csrc/poa_pk_align.cu): K1's DP over the rank-space graph
     that ops/poa_fused.pk_round_prep builds each round, plus the traceback
@@ -12,10 +12,21 @@ plain torch versions (counterpart of svscope_tpu/ops/poa_fused_kernel.py).
     serial walk itself, one warp per window.  `fusion_engine()` reads
     SVSCOPE_PK_FUSION ("lockstep", the default, or "seq") at every call.
     Plain version of both: `fusion_reference(order=...)`.
+  * K6 `round_prep_cuda` / `toposort_cuda` (csrc/poa_pk_prep.cu): a round's
+    group-Kahn order and K3's and the fusion's operands, one block per
+    window, the whole Kahn loop on the card; in its order mode the build's
+    final order.  Plain versions: ops/poa_fused.pk_round_prep_reference and
+    toposort_reference, which ops/poa_fused dispatches to on CPU tensors.
+  * K7 `consensus_cuda` (csrc/poa_pk_consensus.cu): the heaviest-bundle
+    consensus walk, one block per window.  Plain version:
+    ops/poa_fused.consensus_walk_reference.
+K6 and K7 replace loops that the JAX package keeps on the device as XLA
+(`_toposort`'s while loop, `_consensus_walk`'s scan and walks), not Pallas
+kernels.
 
 CUDA tensors go to the kernels, CPU tensors to the plain versions; any other
 device raises, and so does a kernel that fails to build or launch.
-`LAUNCHES` counts kernel launches by name ("K3", "K4", "K5"); the plain
+`LAUNCHES` counts kernel launches by name ("K3" ... "K7"); the plain
 versions never touch it.
 
 Graph state (`GraphState`): struct-of-arrays int32 tensors per window, row
@@ -42,14 +53,16 @@ from .poa_device import MAX_PREDS, align_batch_reference
 ALPHA5 = 5                 # base codes ACGTN -> 0..4
 ALIGN_SOURCE = "poa_pk_align.cu"
 FUSION_SOURCE = "poa_pk_fusion.cu"
-SOURCES = (ALIGN_SOURCE, FUSION_SOURCE)
+PREP_SOURCE = "poa_pk_prep.cu"
+CONSENSUS_SOURCE = "poa_pk_consensus.cu"
+SOURCES = (ALIGN_SOURCE, FUSION_SOURCE, PREP_SOURCE, CONSENSUS_SOURCE)
 FUSION_ENGINES = ("lockstep", "seq")
 SEQ_GROUP = 8              # JAX's seq kernel: windows per grid step
 # gs lane fields of the JAX layout (svscope_tpu/ops/poa_fused_kernel.py)
 GS_LANES = 128
 L_PN, L_PW, L_PT, L_GC, L_CH, L_GM = 0, 8, 16, 24, 32, 33
 
-LAUNCHES = {"K3": 0, "K4": 0, "K5": 0}
+LAUNCHES = {"K3": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0}
 _count_lock = threading.Lock()
 _fns: dict[str, object] = {}
 
@@ -383,13 +396,15 @@ def _fusion_fns():
 
 
 def fusion_cuda(an, asx, ke, gminr, seqs5, st: GraphState,
-                order: str = "lockstep", fallbacks=None):
+                order: str = "lockstep", fallbacks=None, out=None):
     """Launch K4 (order="lockstep") or K5 (order="seq") on CUDA tensors
     (see fusion_reference); updates `st` in place, returns the path.
     st.pn, st.pw and st.pt must be 16-byte aligned (whole pred rows move as
     two 16-byte words).  `fallbacks`, a (1,) int32 tensor on the same
     device, gets K4's count of windows that took the serial walk added
-    (K5 walks every window and adds nothing)."""
+    (K5 walks every window and adds nothing).  `out`, a contiguous
+    (B, l_max) int32 tensor holding -1, takes the path in place of a new
+    one (the kernels write only the read's positions)."""
     if order not in FUSION_ENGINES:
         raise ValueError(f"order {order!r}: one of {FUSION_ENGINES}")
     dev = an.device
@@ -414,9 +429,12 @@ def fusion_cuda(an, asx, ke, gminr, seqs5, st: GraphState,
         check_tensor(name, t, i32, shape, dev)
     if fallbacks is not None:
         check_tensor("fallbacks", fallbacks, i32, (1,), dev)
+    if out is not None:
+        check_tensor("out", out, i32, (B, l_max), dev)
     if any(t.data_ptr() % 16 for t in (st.pn, st.pw, st.pt)):
         raise ValueError("st.pn, st.pw and st.pt must be 16-byte aligned")
-    path = torch.full((B, l_max), -1, dtype=i32, device=dev)
+    path = torch.full((B, l_max), -1, dtype=i32, device=dev) \
+        if out is None else out
     fns = _fusion_fns()
     ptrs = (an.data_ptr(), asx.data_ptr(), ke.data_ptr(), gminr.data_ptr(),
             seqs5.data_ptr(), st.pn.data_ptr(), st.pw.data_ptr(),
@@ -438,12 +456,161 @@ def fusion_cuda(an, asx, ke, gminr, seqs5, st: GraphState,
     return path
 
 
-def fusion(an, asx, ke, gminr, seqs5, st: GraphState):
+def fusion(an, asx, ke, gminr, seqs5, st: GraphState, out=None):
     """K4, or K5 under SVSCOPE_PK_FUSION=seq, on CUDA tensors; the plain
-    version in the same order on CPU tensors."""
+    version in the same order on CPU tensors.  `out` (see fusion_cuda), when
+    given, receives the path and is returned."""
     order = fusion_engine()
     if an.device.type == "cuda":
-        return fusion_cuda(an, asx, ke, gminr, seqs5, st, order)
+        return fusion_cuda(an, asx, ke, gminr, seqs5, st, order, out=out)
     if an.device.type == "cpu":
-        return fusion_reference(an, asx, ke, gminr, seqs5, st, order)
+        path = fusion_reference(an, asx, ke, gminr, seqs5, st, order)
+        return path if out is None else out.copy_(path)
     raise ValueError(f"unsupported device {an.device}")
+
+
+# ---------------------------------------------------------------- K6 ----
+
+def prep_smem_bytes(ncap: int) -> int:
+    """K6's dynamic shared memory (csrc/poa_pk_prep.cu prep_smem, which
+    refuses a launch past a block's limit): the window's edge words (8 a
+    node), reused by the sort's 8-byte keys (a power of two at least
+    ncap), then gm, the placement step, the blocker max and min and the
+    placed flags."""
+    p2 = 1 << max(ncap - 1, 0).bit_length()
+    return max(4 * MAX_PREDS * ncap, 8 * p2) + 16 * ncap + (-(-ncap // 16)
+                                                            * 16)
+
+
+def _prep_fn():
+    if "prep" not in _fns:
+        fn = load_cuda_lib(PREP_SOURCE).pk_prep_launch
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 17 + [ci] * 3 + [vp]
+        fn.restype = ci
+        _fns["prep"] = fn
+    return _fns["prep"]
+
+
+def _check_graph(pn, gm, nn):
+    """Device, shape and type checks of a (pn, gm, nn) window batch;
+    returns (B, ncap)."""
+    dev = gm.device
+    if dev.type != "cuda":
+        raise ValueError(f"K6 needs CUDA tensors, got {dev}")
+    B, ncap = gm.shape
+    check_tensor("pn", pn, torch.int32, (B, ncap, MAX_PREDS), dev)
+    check_tensor("gm", gm, torch.int32, (B, ncap), dev)
+    check_tensor("nn", nn, torch.int32, (B,), dev)
+    if pn.data_ptr() % 16:
+        raise ValueError("pn must be 16-byte aligned")
+    return B, ncap
+
+
+def _launch_prep(pn, gm, nn, cyclic, *, order=None, rank=None,
+                 ops=(None,) * 7, ch=None, seq=None, slen=None, ovf=None):
+    """One K6 launch: order mode with `order` and `rank`, prep mode with
+    `ops` (charsr ... gminr), ch, seq and slen (and ovf |= cyclic when
+    `ovf` is given)."""
+    B, ncap = gm.shape
+    l_max = 0 if seq is None else seq.shape[1]
+    ptrs = [0 if t is None else t.data_ptr() for t in (
+        pn, gm, nn, ch, seq, slen, ovf, cyclic, order, rank, *ops)]
+    with torch.cuda.device(gm.device):
+        stream = torch.cuda.current_stream(gm.device).cuda_stream
+        rc = _prep_fn()(*ptrs, B, ncap, l_max, stream)
+    if rc != 0:
+        raise RuntimeError(f"pk_prep_launch failed: CUDA error {rc} "
+                           f"(B={B}, ncap={ncap}, l_max={l_max})")
+    _count("K6")
+
+
+def toposort_cuda(pn, gm, nn):
+    """K6 in its order mode on CUDA tensors (ops/poa_fused.toposort_reference
+    on the card): pn (B, ncap, 8), gm (B, ncap), nn (B,) int32, pn 16-byte
+    aligned.  Returns (order, rank) (B, ncap) int64 and cyclic (B,) bool."""
+    B, ncap = _check_graph(pn, gm, nn)
+    order = torch.empty((B, ncap), dtype=torch.long, device=gm.device)
+    rank = torch.empty_like(order)
+    cyclic = torch.empty(B, dtype=torch.bool, device=gm.device)
+    _launch_prep(pn, gm, nn, cyclic, order=order, rank=rank)
+    return order, rank, cyclic
+
+
+def round_prep_cuda(st: GraphState, seq, slen, update_ovf: bool = False):
+    """K6 on CUDA tensors (ops/poa_fused.pk_round_prep_reference on the
+    card): the round's operands (charsr, sinksr, predsp, seqv, lb, nn_eff,
+    gminr), int32, and cyclic (B,) bool; with update_ovf, st.ovf |= cyclic
+    in the same launch.  seq (B, l_max) and slen (B,) int32, contiguous;
+    predsp comes out 16-byte aligned, as K3 needs it."""
+    B, ncap = _check_graph(st.pn, st.gm, st.nn)
+    dev = st.gm.device
+    l_max = seq.shape[1] if seq.dim() == 2 else -1
+    i32 = torch.int32
+    for name, t, shape in (("ch", st.ch, (B, ncap)), ("ovf", st.ovf, (B,)),
+                           ("seq", seq, (B, l_max)), ("slen", slen, (B,))):
+        check_tensor(name, t, i32, shape, dev)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=i32, device=dev)
+    ops = (out(B, ncap), out(B, ncap), out(B, ncap, MAX_PREDS),
+           out(B, l_max + 1), out(B), out(B), out(B, ncap))
+    cyclic = torch.empty(B, dtype=torch.bool, device=dev)
+    _launch_prep(st.pn, st.gm, st.nn, cyclic, ops=ops, ch=st.ch, seq=seq,
+                 slen=slen, ovf=st.ovf if update_ovf else None)
+    return ops, cyclic
+
+
+# ---------------------------------------------------------------- K7 ----
+
+def consensus_smem_bytes(ncap: int) -> int:
+    """K7's dynamic shared memory (csrc/poa_pk_consensus.cu walk_smem):
+    scores and best out-keys (int64), the order, best in-edges, stamp
+    minima and best out-edges (int32), and a 256-rank tile of pred and
+    weight rows."""
+    return 32 * ncap + 2 * 256 * MAX_PREDS * 4
+
+
+def _consensus_fn():
+    if "consensus" not in _fns:
+        fn = load_cuda_lib(CONSENSUS_SOURCE).pk_consensus_launch
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 9 + [ci] * 2 + [vp]
+        fn.restype = ci
+        _fns["consensus"] = fn
+    return _fns["consensus"]
+
+
+def consensus_cuda(pn, pw, pt, nn, order):
+    """K7 on CUDA tensors (ops/poa_fused.consensus_walk_reference on the
+    card): pn, pw, pt (B, ncap, 8) int32 (pn and pw 16-byte aligned), nn
+    (B,) int32, order (B, ncap) int64.  Returns (back_buf (B, ncap),
+    back_start (B,), fwd_buf (B, ncap), fwd_cnt (B,)), int64."""
+    dev = pn.device
+    if dev.type != "cuda":
+        raise ValueError(f"consensus_cuda needs CUDA tensors, got {dev}")
+    B, ncap = order.shape
+    for name, t, shape, dt in (("pn", pn, (B, ncap, MAX_PREDS), torch.int32),
+                               ("pw", pw, (B, ncap, MAX_PREDS), torch.int32),
+                               ("pt", pt, (B, ncap, MAX_PREDS), torch.int32),
+                               ("nn", nn, (B,), torch.int32),
+                               ("order", order, (B, ncap), torch.long)):
+        check_tensor(name, t, dt, shape, dev)
+    if pn.data_ptr() % 16 or pw.data_ptr() % 16:
+        raise ValueError("pn and pw must be 16-byte aligned")
+    back_buf = torch.empty((B, ncap), dtype=torch.long, device=dev)
+    fwd_buf = torch.empty_like(back_buf)
+    back_start = torch.empty(B, dtype=torch.long, device=dev)
+    fwd_cnt = torch.empty_like(back_start)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _consensus_fn()(pn.data_ptr(), pw.data_ptr(), pt.data_ptr(),
+                             nn.data_ptr(), order.data_ptr(),
+                             back_buf.data_ptr(), back_start.data_ptr(),
+                             fwd_buf.data_ptr(), fwd_cnt.data_ptr(), B, ncap,
+                             stream)
+    if rc != 0:
+        raise RuntimeError(f"pk_consensus_launch failed: CUDA error {rc} "
+                           f"(B={B}, ncap={ncap})")
+    _count("K7")
+    return back_buf, back_start, fwd_buf, fwd_cnt

@@ -47,7 +47,7 @@ SMALL_WINDOWS = 64
 BASELINE_WIN_PER_S_RECORDED = 2.2  # bench.py's recorded reference rate
 REF_POOL = 6                       # reference localGraph pool cap
 ENGINES = ("host", "pallas", "fused")
-KERNELS = ("K1", "K3", "K4")       # the POA engines' kernels
+KERNELS = ("K1", "K3", "K4", "K6", "K7")    # the POA engines' kernels
 
 
 def _sync(dev):
@@ -60,7 +60,7 @@ def _somatic(records) -> int:
 
 
 def _launches(before) -> dict:
-    """K1, K3 and K4 launches since `before` (a launch_counts())."""
+    """K1, K3, K4, K6 and K7 launches since `before` (a launch_counts())."""
     now = launch_counts()
     return {k: now[k] - before[k] for k in KERNELS}
 
@@ -88,7 +88,8 @@ def measure_engines(n_windows, dev, engine_names=ENGINES, golden=None,
                     trials=3, log=print) -> dict:
     """Each POA engine on the same workload through tools/probe/e2e_probe:
     {engine: {"cold_s", "w_per_s", "trial_s", "somatic", "golden" (given
-    a golden's record hashes), "launches": {K1, K3, K4} of its runs}}."""
+    a golden's record hashes), "launches": {K1, K3, K4, K6, K7} of its
+    runs}}."""
     from .probe import e2e_probe
     out = {}
     for name in engine_names:

@@ -114,3 +114,90 @@ def fusion_bound(an, asx, ke, gminr, seq5, st):
         + 8 * int((valid & (an >= 0)).sum()) + 32 * max(n_valid - n_new, 0) \
         + 4 * changed + 4 * seq5.numel()
     return bound(nbytes, 0), int(live.sum())
+
+
+# K6 and K7 (the pk build's group-Kahn re-rank and consensus walk):
+# integer ops per live edge and per unplaced column of each Kahn step (the
+# blocker min and max; the ready, candidate and run tests), per pred slot
+# of the re-rank (the rank lookup, the slot-0 copy), per node of the sort
+# (a compare per level), per pred slot of the score pass and of the best
+# out-edge (the key, the max, the match, the stamp min).
+KAHN_OPS_PER_LIVE_EDGE = 2
+KAHN_OPS_PER_COLUMN = 4
+RERANK_OPS_PER_SLOT = 2
+WALK_OPS_PER_SLOT = 8
+
+
+def kahn_work(pn, gm, nn):
+    """Per window of a (pn, gm, nn) batch, the group-Kahn loop's work as
+    this state needs it: (steps, live edges summed over the steps,
+    unplaced columns summed over the steps), numpy int64 each.  A window
+    runs steps until one places nothing or no column is left, as K6 does;
+    the steps are the plain version's kahn_step."""
+    import numpy as np
+    import torch
+    from ..ops.poa_fused import BIG, MAX_PREDS, kahn_step
+    pn, gm, nn = (torch.as_tensor(x).cpu() for x in (pn, gm, nn))
+    B, ncap = gm.shape
+    ids = torch.arange(ncap)
+    gm64 = gm.long()
+    active = ids < nn.long()[:, None]
+    is_grp = active & (gm64 == ids)
+    tails = gm64.gather(1, pn.long().clamp(0, ncap - 1).reshape(B, -1))
+    heads = gm64.repeat_interleave(MAX_PREDS, dim=1)
+    ev = ((pn >= 0) & active[:, :, None]).reshape(B, -1) & (tails != heads)
+    st = (torch.zeros((B, ncap), dtype=torch.bool),
+          torch.full((B, ncap), BIG, dtype=torch.long))
+    steps, edges, cols = (np.zeros(B, np.int64) for _ in range(3))
+    running = (is_grp & ~st[0]).any(1)
+    it = 0
+    while bool(running.any()) and it < ncap:
+        run = running.numpy()
+        unplaced = is_grp & ~st[0]
+        live = ev & ~st[0].gather(1, tails)
+        steps += run
+        edges += np.where(run, live.sum(1).numpy(), 0)
+        cols += np.where(run, unplaced.sum(1).numpy(), 0)
+        st, place = kahn_step(st, is_grp, ev, tails, heads, ids, it)
+        running = running & place.any(1) & (is_grp & ~st[0]).any(1)
+        it += 1
+    return steps, edges, cols
+
+
+def prep_bound(pn, gm, nn, l_max: int, order_only: bool = False):
+    """K6's bound on one call: bytes, the active nodes' pred rows, column
+    ids and (prep mode) bases read once, the read and the counters; every
+    output row written once (order mode: order and rank, int64; prep mode:
+    charsr, sinksr, gminr, predsp, seqv, lb, nn_eff, ovf); ops, the Kahn
+    loop's work on this state (kahn_work), the sort's n log2 n, the
+    re-rank's slots.  Returns (bound, Kahn steps per window)."""
+    steps, edges, cols = kahn_work(pn, gm, nn)
+    B, ncap = gm.shape[:2]
+    n = _active(nn, ncap)
+    log2 = max(ncap - 1, 1).bit_length()
+    ops = int((KAHN_OPS_PER_LIVE_EDGE * edges + KAHN_OPS_PER_COLUMN * cols
+               ).sum()) + B * ncap * log2
+    if order_only:
+        nbytes = int(36 * n.sum()) + B * (4 + 16 * ncap + 1)
+    else:
+        ops += int(RERANK_OPS_PER_SLOT * 8 * n.sum())
+        nbytes = int(40 * n.sum()) + B * (4 * l_max + 12 + 44 * ncap
+                                          + 4 * (l_max + 1) + 8 + 4 + 1)
+    return bound(nbytes, ops), steps
+
+
+def consensus_bound(pn, nn, ncap: int):
+    """K7's bound on one call: the active nodes' three pred rows and their
+    ranks of the order read once, the two int64 buffers and the two
+    counters written once; ops, WALK_OPS_PER_SLOT per pred slot of the
+    active nodes (the score pass and the best out-edge)."""
+    B = pn.shape[0]
+    n = _active(nn, ncap)
+    nbytes = int((3 * 32 + 8) * n.sum()) + B * (4 + 16 * ncap + 16)
+    return bound(nbytes, int(WALK_OPS_PER_SLOT * 8 * n.sum()))
+
+
+def _active(nn, ncap: int):
+    """Active nodes per window, numpy int64 (nn clipped to [0, ncap])."""
+    import torch
+    return torch.as_tensor(nn).cpu().long().clamp(0, ncap).numpy()

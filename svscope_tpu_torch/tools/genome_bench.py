@@ -372,7 +372,8 @@ def tier_table(classes, cand_spans, som_calls, vcf_calls) -> dict:
 
 
 def launch_counts() -> dict:
-    """Kernel launches so far: K1, K2, K3, K4, K5 (each wrapper's count)."""
+    """Kernel launches so far: K1, K2 and the fused build's K3-K7 (each
+    wrapper's count)."""
     from ..ops import nw_kernel, poa_align
     from ..ops import poa_fused_kernel as tpk
     return {"K1": poa_align.LAUNCHES, "K2": nw_kernel.LAUNCHES,

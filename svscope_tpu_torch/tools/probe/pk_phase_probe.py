@@ -6,25 +6,27 @@
      (the operands of each round are then exactly the build's own).
   2. REPLAY, three loops over the recorded rounds, every input on the
      device:
-       glue   pk_round_prep (group-Kahn toposort, re-rank, operands) on
-              each recorded state;
+       glue   pk_round_prep (K6 on the card: the group-Kahn re-rank and
+              the operands) on each recorded state;
        gA     glue + K3 (align_tb) on its operands;
        gAB    glue + K3 + K4/K5 (fusion), the state threaded through the
-              rounds from an empty one, as the build runs them (after each
-              round it must equal the next recorded state).
-     Inside each gAB replay every K3 and every fusion call is a span on
-     the device's clock (utils/spans: CUDA events around the call, read
-     after the replay); the phase costs are those of the fastest gAB
-     replay: K3 and fusion the sums of their spans, the glue the replay
-     less both. The JAX probe takes the costs as differences of replays
-     (K3 = gA - glue, fusion = gAB - gA); here the toposort syncs with the
-     host every KAHN_CHECK_EVERY steps (poa_fused.py), so no CUDA graph
-     can capture the glue, and replays timed one by one spread by more
-     than K3 and fusion take. The differences are printed beside the
-     spans only where they exceed the spread of the replays they compare
-     (at least two turns), and are "unresolved" otherwise. Each replay is
-     timed alone, events around the whole loop after a synchronise, the
-     three in turns, `--reps` turns.
+              rounds from an empty one, as the build runs them (K6 sets
+              ovf; after each round the state must equal the next
+              recorded one).
+     Inside each gAB replay every K6, K3 and fusion call is a span on the
+     device's clock (utils/spans: CUDA events around the call, read after
+     the replay); the phase costs are those of the fastest gAB replay:
+     K6, K3 and fusion the sums of their spans, "glue" the replay less the
+     three (the host's issue and the gaps between the launches). The JAX
+     probe takes the costs as differences of replays (K3 = gA - glue,
+     fusion = gAB - gA); replays timed one by one spread by more than K3
+     and fusion take, so the differences are printed beside the spans
+     only where they exceed the spread of the replays they compare (at
+     least two turns), and are "unresolved" otherwise. Nothing in a round
+     reads the device back (K6 runs the whole Kahn loop), so a replay's
+     calls are all queued before it ends. Each replay is timed alone,
+     events around the whole loop after a synchronise, the three in
+     turns, `--reps` turns.
 Compare the sum with chip_smoke.py's bench256-fused-split (the same batch
 size, its phases synchronised at every boundary) and with the full build
 timed here.
@@ -68,22 +70,28 @@ def record(seqs, lens, n_seqs, ncap: int, dev):
 
     out = build_batch_pk(seqs, lens, n_seqs, ncap=ncap, device=dev,
                          round_hook=hook, fetch=False)
-    seqs_d = torch.from_numpy(np.ascontiguousarray(seqs)).to(dev)
-    lens_d = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(dev)
-    rounds = [(seqs_d[:, r].to(torch.int32), lens_d[:, r].contiguous())
-              for r in range(len(states))]
+    seqs_d = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(seqs, (1, 0, 2)), np.int32)).to(dev)
+    lens_d = torch.from_numpy(np.ascontiguousarray(
+        np.transpose(lens), np.int32)).to(dev)
+    rounds = [(seqs_d[r], lens_d[r]) for r in range(len(states))]
     return states, rounds, out
 
 
 def replay(phase: str, states, rounds, empty, spans=None):
     """One replay loop (PHASES); returns the threaded state for gAB.
-    spans (utils/spans.Spans): each K3 and fusion call marked as a span."""
+    spans (utils/spans.Spans): each K6, K3 and fusion call marked as a
+    span."""
     from ...ops.poa_fused import pk_round_prep
     from ...ops.poa_fused_kernel import align_tb, fusion
     st = empty
     for r, (seq, slen) in enumerate(rounds):
         src = st if phase == "gAB" else states[r]
-        ops, cyclic = pk_round_prep(src, seq, slen)
+        m = spans.mark(seq.device) if spans else None
+        ops, _cyclic = pk_round_prep(src, seq, slen,
+                                     update_ovf=phase == "gAB")
+        if spans:
+            spans.add("K6", m, seq.device)
         if phase == "glue":
             continue
         *k3_ops, gminr = ops
@@ -93,7 +101,6 @@ def replay(phase: str, states, rounds, empty, spans=None):
             spans.add("K3", m, seq.device)
         if phase == "gA":
             continue
-        st.ovf |= cyclic.to(torch.int32)
         m = spans.mark(seq.device) if spans else None
         fusion(an, asx, ke, gminr, seq, st)
         if spans:
@@ -104,7 +111,8 @@ def replay(phase: str, states, rounds, empty, spans=None):
 def timed_replay(phase: str, states, rounds, empty, dev):
     """ms of one replay on the device's clock (the device synchronised
     first, the fresh gAB state made before the start) and, for gAB, the
-    ms of its K3 and fusion spans: ({"replay", "K3", "fusion"})."""
+    ms of its K6, K3 and fusion spans: ({"replay", "K6", "K3",
+    "fusion"})."""
     from ...utils.spans import Spans
     st = empty() if phase == "gAB" else None
     if dev.type == "cuda":
@@ -143,9 +151,10 @@ def check_threaded(states, rounds, st, out) -> None:
 
 def run(b: int = 128, reads: int = 24, reps: int = 3, device="cuda",
         log=print) -> dict:
-    """ms of the full build and of each replay, the phase costs (glue, K3,
-    fusion) from the fastest gAB replay's spans, the differences of the
-    replays where they resolve, and the build's counts."""
+    """ms of the full build and of each replay, the phase costs (K6, K3,
+    fusion from the fastest gAB replay's spans, glue its rest), the
+    differences of the replays where they resolve, and the build's
+    counts."""
     from ...ops import poa_fused as tpf
     from ...ops.poa_fused import build_batch_pk
     from ...ops.poa_fused_kernel import GraphState
@@ -179,17 +188,19 @@ def run(b: int = 128, reads: int = 24, reps: int = 3, device="cuda",
                 spans.append(t)
     ms = {p: min(v) for p, v in trials.items()}
     best = min(spans, key=lambda t: t["replay"])
-    costs = {"glue": best["replay"] - best["K3"] - best["fusion"],
-             "K3": best["K3"], "fusion": best["fusion"]}
+    costs = {"glue": best["replay"] - best["K6"] - best["K3"]
+             - best["fusion"], "K6": best["K6"], "K3": best["K3"],
+             "fusion": best["fusion"]}
     diffs = {"K3": resolved(trials["glue"], trials["gA"]),
              "fusion": resolved(trials["gA"], trials["gAB"])}
     log("[replays] " + ", ".join(
         f"{p} {[round(t, 3) for t in v]}" for p, v in trials.items())
         + " ms")
     log(f"[phases] rounds={len(rounds)}, the fastest gAB replay "
-        f"{best['replay']:.3f} ms: K3 {costs['K3']:.3f} ms and fusion "
-        f"{costs['fusion']:.3f} ms (their calls' spans), glue "
-        f"{costs['glue']:.3f} ms (the rest); the full build "
+        f"{best['replay']:.3f} ms: K6 {costs['K6']:.3f} ms, K3 "
+        f"{costs['K3']:.3f} ms and fusion {costs['fusion']:.3f} ms (their "
+        f"calls' spans), glue {costs['glue']:.3f} ms (the rest); the full "
+        f"build "
         f"{full_ms:.3f} ms adds the upload, the final toposort, the "
         f"consensus walk and the download")
     log("[differences] " + ", ".join(

@@ -65,7 +65,7 @@ def test_line_holds_every_key_of_bench_py(small_run):
     assert "CPU EM" in small_run["metric"]
     assert set(small_run["engines"]) == {"host"}
     assert small_run["engines"]["host"]["launches"] == {
-        "K1": 0, "K3": 0, "K4": 0}
+        "K1": 0, "K3": 0, "K4": 0, "K6": 0, "K7": 0}
 
 
 def test_heavy_tier_keys(monkeypatch):
@@ -81,7 +81,8 @@ def test_heavy_tier_keys(monkeypatch):
     assert set(res["pallas"]) == {"w_per_s", "cold_s", "trial_s",
                                   "launches"}
     assert len(res["pallas"]["trial_s"]) == 2
-    assert res["pallas"]["launches"] == {"K1": 0, "K3": 0, "K4": 0}
+    assert res["pallas"]["launches"] == {"K1": 0, "K3": 0, "K4": 0,
+                                          "K6": 0, "K7": 0}
 
 
 def test_payloads_equal_bench_py():

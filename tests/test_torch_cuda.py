@@ -1,5 +1,5 @@
 """Tests that need an NVIDIA GPU: the CUDA kernels (K1 and K1-int16; K3,
-K4, K5 of the fused pk build; K2 of the MisScore path; the row,
+K4, K5, K6, K7 of the fused pk build; K2 of the MisScore path; the row,
 fusion-body and int16 probes) against their plain torch versions, at the
 edges of K1's, K3's, K4's, K2's and the three probes' layouts too, and the
 slices' device paths and the measurement tools (K1's clock64 split among
@@ -163,6 +163,86 @@ def test_pk_kernels_count_launches_and_reject_bad_input(pk_rounds):
                         seqv[:, 1:].contiguous(), st.clone())
 
 
+@pytest.mark.parametrize("ncap", [129, 1025, 3073])
+def test_k6_k7_edge_states_match_plain(dev, ncap):
+    """K6 (prep and order modes) and K7 == plain on glue_edge_case's
+    windows (an empty graph, one node, 8 full in-slots, two cyclic
+    windows, an empty read, ncap - 1 nodes, columns and branches)."""
+    st, seq, slen = chip_smoke.glue_edge_tensors(ncap, dev)
+    before = dict(tpk.LAUNCHES)
+    errs, n_cyclic = chip_smoke.glue_compare(st, seq, slen)
+    assert errs == {"K6": 0, "K7": 0}
+    assert n_cyclic == 2
+    assert tpk.LAUNCHES["K6"] == before["K6"] + 2
+    assert tpk.LAUNCHES["K7"] == before["K7"] + 1
+
+
+@pytest.mark.parametrize("r", [0, 5, 20])
+def test_k6_k7_match_plain_on_captured_rounds(pk_rounds, r):
+    """K6 == plain == the build's own operands, K7 == plain, on the states
+    of real rounds."""
+    ops, st, an, asx, ke = pk_rounds[r]
+    errs, n_cyclic = chip_smoke.glue_compare(
+        st, ops[3][:, 1:].contiguous(), ops[4], build_ops=ops)
+    assert errs == {"K6": 0, "K7": 0} and n_cyclic == 0
+
+
+def test_k6_k7_count_launches_and_reject_bad_input(pk_rounds):
+    ops, st, an, asx, ke = pk_rounds[5]
+    seq = ops[3][:, 1:].contiguous()
+    before = dict(tpk.LAUNCHES)
+    with pytest.raises(TypeError):
+        tpk.toposort_cuda(st.pn.long(), st.gm, st.nn)
+    with pytest.raises(ValueError):               # not contiguous
+        tpk.round_prep_cuda(st, ops[3][:, 1:], ops[4])
+    shifted = torch.empty(st.pn.numel() + 1, dtype=torch.int32,
+                          device=st.pn.device)[1:].view(st.pn.shape)
+    shifted.copy_(st.pn)
+    with pytest.raises(ValueError):               # pn not 16-byte aligned
+        tpk.toposort_cuda(shifted, st.gm, st.nn)
+    order = tpk.toposort_cuda(st.pn, st.gm, st.nn)[0]
+    with pytest.raises(TypeError):
+        tpk.consensus_cuda(st.pn, st.pw, st.pt, st.nn, order.int())
+    assert tpk.LAUNCHES["K6"] == before["K6"] + 1
+    tpf.pk_round_prep(st.clone(), seq, ops[4])
+    tpf.consensus_walk(st.ch, st.pn, st.pw, st.pt, st.nn, order)
+    assert tpk.LAUNCHES["K6"] == before["K6"] + 2
+    assert tpk.LAUNCHES["K7"] == before["K7"] + 1
+
+
+def test_k6_k7_shared_memory_plans_match_the_kernels(dev):
+    import ctypes
+    prep = tpk.load_cuda_lib(tpk.PREP_SOURCE).pk_prep_smem_bytes
+    walk = tpk.load_cuda_lib(tpk.CONSENSUS_SOURCE).pk_consensus_smem_bytes
+    for fn in (prep, walk):
+        fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for n in (1, 2, 48, 65, 97, 129, 1025, 2049, 3073, 4096):
+        assert prep(n) == tpk.prep_smem_bytes(n), n
+        assert walk(n) == tpk.consensus_smem_bytes(n), n
+
+
+def test_fused_build_reads_nothing_back(dev):
+    """A fused build on the card makes no host check (the plain versions'
+    COUNTS stay 0), three launches a round and one K6 and one K7 after
+    the last, and equals the CPU build."""
+    from torch_workloads import make_window_payloads
+    wins = make_window_payloads(8, np.random.default_rng(2))
+    _out, groups, _fb, enc = tpf.plan_buckets([w.sequences for w in wins])
+    (rb, lb, nb), idxs = next(iter(groups.items()))
+    arrs = tpf.chunk_arrays(idxs, enc, rb, lb)
+    rounds = int(arrs[2].max())
+    tpk.reset_launches()
+    tpf.reset_counts()
+    got = tpf.build_batch_pk(*arrs, ncap=nb + 1, device=dev)
+    assert tpf.COUNTS["host_syncs"] == tpf.COUNTS["kahn_steps"] == 0
+    assert tpf.COUNTS["consensus_steps"] == 0
+    assert tpk.LAUNCHES == {"K3": rounds, "K4": rounds, "K5": 0,
+                            "K6": rounds + 1, "K7": 1}
+    want = tpf.build_batch_pk(*arrs, ncap=nb + 1, device="cpu")
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_k3_edge_windows(dev):
     """K3 == plain on the pk-layout edge windows (an empty graph, an empty
     read, 8 distinct preds beside padded slots, sources past rank 0, a
@@ -258,7 +338,8 @@ def test_fused_msa_on_card_matches_host(dev):
     tpf.reset_counts()
     got = tpf.fused_msa_batch(jobs, device=dev)
     assert got == poa_msa_batch_native(jobs)
-    assert tpk.LAUNCHES["K3"] > 0 and tpk.LAUNCHES["K4"] > 0
+    assert all(tpk.LAUNCHES[k] > 0 for k in ("K3", "K4", "K6", "K7"))
+    assert tpf.COUNTS["host_syncs"] == 0
     assert tpf.COUNTS["fallbacks"] == 1          # the IUPAC window
 
 
@@ -268,7 +349,7 @@ def test_fused_slice_on_card(dev, monkeypatch):
     want = process_window_batch(wins, device=dev, device_poa=False)
     tpk.reset_launches()
     assert process_window_batch(wins, device=dev, device_poa="fused") == want
-    assert tpk.LAUNCHES["K3"] > 0 and tpk.LAUNCHES["K4"] > 0
+    assert all(tpk.LAUNCHES[k] > 0 for k in ("K3", "K4", "K6", "K7"))
     monkeypatch.setenv("SVSCOPE_PK_FUSION", "seq")
     tpk.reset_launches()
     assert process_window_batch(wins, device=dev, device_poa="fused") == want
@@ -510,7 +591,8 @@ def test_dp_split_launches_each_shard(dev):
     the fused build too (K3 and K4)."""
     from svscope_tpu_torch.parallel import dataparallel as dpm
     wins = tw.make_window_payloads(16, np.random.default_rng(0))
-    for engine, kernels in (("pallas", ("K1",)), ("fused", ("K3", "K4"))):
+    for engine, kernels in (("pallas", ("K1",)),
+                            ("fused", ("K3", "K4", "K6", "K7"))):
         base = process_window_batch(wins, device=dev, device_poa=engine)
         poa_align.reset_launches()
         tpk.reset_launches()

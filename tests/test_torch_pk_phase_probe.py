@@ -12,8 +12,8 @@ torch.set_num_threads(1)
 def test_pk_phase_probe_replays_the_build():
     """The threaded replay equals every recorded round (checked inside
     run, which raises otherwise); each phase timed; the phase costs are
-    the fastest gAB replay's spans and its rest, each positive, summing
-    to that replay."""
+    the fastest gAB replay's spans (K6, K3, fusion) and its rest, each
+    positive, summing to that replay."""
     res = pk_phase_probe.run(b=2, reads=3, reps=1, device="cpu",
                              log=lambda *_: None)
     assert res["rounds"] == 4 and res["ncap"] == 1025
@@ -21,7 +21,7 @@ def test_pk_phase_probe_replays_the_build():
     assert all(v > 0 for v in res["replay_ms"].values())
     assert res["counts"]["rounds"] == 4
     costs = res["phase_ms"]
-    assert all(costs[k] > 0 for k in ("glue", "K3", "fusion"))
+    assert all(costs[k] > 0 for k in ("glue", "K6", "K3", "fusion"))
     assert sum(costs.values()) == pytest.approx(res["replay_ms"]["gAB"])
     assert res["diff_ms"] == {"K3": None, "fusion": None}   # one turn
 

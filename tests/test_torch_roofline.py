@@ -125,6 +125,17 @@ def test_engine_ab_same_source_is_identical():
     assert res["identical"] and len(res["a_s"]) == len(res["b_s"]) == 2
 
 
+def test_engine_invariant_check_keeps_the_engine_output():
+    """The port's engine, whose Graph::join_group checks its invariant (the
+    node is the newest, an edgeless singleton group) and aborts on a
+    violation, gives the bytes of the JAX package's engine source
+    (native/poa_engine.cpp, which has no check) on the bench windows."""
+    res = engine_ab.run(os.path.join(REPO, "native", "poa_engine.cpp"),
+                        windows=16, trials=1, device="cpu",
+                        log=lambda *_: None)
+    assert res["identical"]
+
+
 FAKE_ENGINE = r"""
 #include <cstdint>
 extern "C" int poa_msa_batch(const char*, const int64_t*, int64_t,
