@@ -30,8 +30,10 @@ non-zero before the final line:
      > 0; warm windows/s for device and host POA.
   4. the heavy tier (32 windows x 400 reads): golden 32/32, its K1
      launches (K1's main path is both runs, each counted from 0), w/s.
-  5. the CLI: `python -m svscope_tpu_torch.cli localGraph --device cuda`
-     on the synthetic BAM pair; Raw.bed sha256 equals the golden.
+  5. the CLI: `localGraph --device cuda` (svscope_tpu_torch.cli's main in
+     a subprocess, which then prints poa_fused.COUNTS["host_syncs"]) on
+     the synthetic BAM pair; Raw.bed sha256 equals the golden, and the
+     count is 0.
   6. pk-parity: K3, K4 and K5 against their plain versions (and K4 against
      K5, and the plain version against the CPU model of K4's phases,
      tests/torch_fusion_model.py) on operands captured from real rounds of
@@ -54,9 +56,13 @@ non-zero before the final line:
      == the operands the build recorded) and on glue_edge_case's windows
      at ncap 129, 1025 and 3073 (an empty graph, one node, 8 full
      in-slots, two cyclic windows, an empty read, ncap - 1 nodes, columns
-     and branches): exact; then each timed (calls queued ahead of the
+     and branches, a head with over 32 blockers, duplicate edges, a run of
+     over 32 columns over holes, one long chain, weights past 2^10 for
+     K7's 64-bit keys): exact; then each timed (calls queued ahead of the
      device) beside its plain version and its bound (tools/bounds.py), at
-     bench round 12 and heavy round 200.
+     bench round 12 and heavy round 200, with K6's us a Kahn step and K7's
+     ns a rank (the time over the batch's longest window's steps or
+     nodes).
   7. pk-time: each of K3, K4, K5 and its plain version on the bench batch
      the port launches (128 windows, round 12) and at the heavy capture
      (32 windows, round 200); the kernels' calls queued ahead of the device
@@ -77,7 +83,8 @@ non-zero before the final line:
      from 0).  Every fused path below (dataprepare-fused, the dp run,
      genome-bench-fused, the tools, bench) also fails on a host sync
      inside a build and prints its pk launches a round.
- 10. the CLI with `--device-poa fused`: Raw.bed sha256 equals the golden.
+ 10. the CLI with `--device-poa fused`: Raw.bed sha256 equals the golden,
+     and no host sync inside its fused builds (the subprocess's count).
  11. k2-parity: K2 (csrc/nw_stats.cu) against its plain torch version at
      every bucket 128 ... 4096 under both score sets (MisScore (1, 0, -1),
      edit distance (0, -1, -1)), seeded pairs with substitutions and
@@ -571,11 +578,16 @@ def fusion_edge_case(ncap=48, l_max=40):
 GLUE_EDGE_CASES = ("empty graph", "one node", "8 full in-slots",
                    "a back edge (cyclic)", "an empty read",
                    "two back edges (cyclic)", "ncap - 1 nodes",
-                   "columns and branches")
+                   "columns and branches", "a head with > 32 blockers",
+                   "duplicate cross-column edges",
+                   "a run of > 32 columns over holes",
+                   "one chain of ncap - 1 nodes", "weights past 2^10")
+GLUE_CYCLIC = (3, 5)                  # the cyclic windows of glue_edge_case
+GLUE_WIDE = 12                        # its window with 64-bit K7 keys
 
 
 def glue_edge_case(ncap, l_max=64, seed=0):
-    """Hand-built window states at the edges of K6 and K7 (numpy), B = 8,
+    """Hand-built window states at the edges of K6 and K7 (numpy), B = 13,
     one case per window (GLUE_EDGE_CASES), shaped as fusion leaves them: a
     backbone chain, then nodes with larger ids that either join a backbone
     node's column as its alternative (preds and successors around it) or
@@ -585,21 +597,28 @@ def glue_edge_case(ncap, l_max=64, seed=0):
     permutation.  0, n = 0; 1, n = 1; 2, n = ncap / 2 and a node whose 8
     pred slots are all used; 3, one backbone back edge closing a cycle;
     4, a read of length 0; 5, two back edges; 6, n = ncap - 1 (the trash
-    row's edge); 7, many columns and branches.  Rows past n hold
-    GraphState.empty's pattern.  Returns a dict: pn, pw, pt, gc, ch, gm,
-    nn, tctr, ovf (GraphState's fields) and seq (B, l_max), slen (B,),
-    int32."""
+    row's edge); 7, many columns and branches; 8, a column of 7 members
+    with 8 preds each (over 32 distinct blocker columns, one of them an
+    insertion with a larger id); 9, columns of two members joined to each
+    other (the same column pair up to four times) and pred rows naming a
+    tail twice; 10, a chain over three id blocks in the order 2, 1, 3,
+    every 7th id an alternative (a first run of over 32 columns, then one
+    across the placed block and the alternatives); 11, a plain chain of
+    ncap - 1 nodes; 12, weights of 2^10 to 2^20 (K7's 64-bit keys).  Rows
+    past n hold GraphState.empty's pattern.  Returns a dict: pn, pw, pt,
+    gc, ch, gm, nn, tctr, ovf (GraphState's fields) and seq (B, l_max),
+    slen (B,), int32."""
     import numpy as np
     rng = np.random.default_rng(1000 * seed + ncap)
-    B = 8
+    B = len(GLUE_EDGE_CASES)
     pn = np.full((B, ncap, 8), -1, np.int32)
     pw = np.zeros((B, ncap, 8), np.int32)
     pt = np.zeros((B, ncap, 8), np.int32)
     gm = np.tile(np.arange(ncap, dtype=np.int32), (B, 1))
     ch = np.zeros((B, ncap), np.int32)
     nn = np.zeros(B, np.int32)
-    slen = rng.integers(1, l_max + 1, B).astype(np.int32)
-    seq = rng.integers(0, 5, (B, l_max)).astype(np.int32)
+    slen = rng.integers(1, l_max + 1, 8).astype(np.int32)
+    seq = rng.integers(0, 5, (8, l_max)).astype(np.int32)
 
     def add(w, head, tail):
         row = pn[w, head]
@@ -632,8 +651,11 @@ def glue_edge_case(ncap, l_max=64, seed=0):
         for _ in range(back):
             a = int(rng.integers(0, m - 3))
             add(w, a, int(rng.integers(a + 2, m)))
+        weigh(w, n)
+
+    def weigh(w, n, low=1, high=25):
         live = (pn[w, :n] >= 0)
-        pw[w, :n][live] = rng.integers(1, 25, int(live.sum()))
+        pw[w, :n][live] = rng.integers(low, high, int(live.sum()))
         pt[w, :n][live] = rng.permutation(int(live.sum()))
     graph(0, 0)
     graph(1, 1)
@@ -644,6 +666,78 @@ def glue_edge_case(ncap, l_max=64, seed=0):
     graph(5, ncap // 2, skips=ncap // 8, back=2)
     graph(6, ncap - 1, skips=ncap // 16)
     graph(7, 3 * ncap // 4, branch=0.5, skips=ncap // 4)
+    # 8: column c's 7 members (c and 6 alternatives), 8 preds each from
+    # the backbone, one of them an insertion y > c, so c waits for y
+    m = ncap // 2
+    for v in range(1, m):
+        pn[8, v, 0] = v - 1
+    c, y = m - 2, m + 6
+    pn[8, c, 1:] = rng.choice(c - 1, 7, replace=False)
+    for x in range(m, y):
+        gm[8, x] = c
+        pn[8, x] = rng.choice(c, 8, replace=False)
+        add(8, c + 1, x)
+    pn[8, m, 7] = y
+    pn[8, y, 0] = 3
+    nn[8] = y + 1
+    # 9: a backbone whose nodes from 2 on get an alternative while ids
+    # last, each member joined to both members of the column before; every
+    # fifth row from 3 names its first tail twice
+    n9 = ncap // 2
+    for v in range(1, n9 // 2):
+        pn[9, v, 0] = v - 1
+    alt = {}
+    x = n9 // 2
+    for i in range(2, n9 // 2 - 1):
+        if x >= n9:
+            break
+        gm[9, x] = i
+        alt[i] = x
+        for h in (i, x):
+            for t in (i - 1, alt.get(i - 1, -1)):
+                if t >= 0:
+                    add(9, h, t)
+        add(9, i + 1, x)
+        x += 1
+    for v in range(3, x, 5):
+        row = pn[9, v]
+        free = np.flatnonzero(row < 0)
+        if row[0] >= 0 and free.size:
+            row[free[0]] = row[0]
+    nn[9] = x
+    # 10: a chain over the id blocks [b1, b2), [0, b1), [b2, n), every 7th
+    # id (not 0) joining the column of the chain node below it
+    n10 = ncap - 1
+    ids = np.arange(n10)
+    alts = ids[(ids % 7 == 6)]
+    chain_ids = ids[ids % 7 != 6]
+    b1, b2 = n10 // 3, 2 * n10 // 3
+    walk = np.concatenate([chain_ids[(chain_ids >= b1) & (chain_ids < b2)],
+                           chain_ids[chain_ids < b1],
+                           chain_ids[chain_ids >= b2]])
+    pred_of = {}
+    for a, b in zip(walk[:-1], walk[1:]):
+        pn[10, b, 0] = a
+        pred_of[int(b)] = int(a)
+    succ_of = {a: b for b, a in pred_of.items()}
+    for x in alts:
+        i = int(x) - 1
+        gm[10, x] = i
+        if i in pred_of:
+            add(10, int(x), pred_of[i])
+        if i in succ_of:
+            add(10, succ_of[i], int(x))
+    nn[10] = n10
+    for w in (8, 9, 10):
+        ch[w, :nn[w]] = rng.integers(0, 5, nn[w])
+        weigh(w, nn[w])
+    graph(11, ncap - 1, branch=0.0)
+    graph(12, ncap // 2, skips=ncap // 16)
+    weigh(12, ncap // 2, 1 << 10, 1 << 20)
+    slen = np.concatenate([slen, rng.integers(1, l_max + 1, B - 8)]
+                          ).astype(np.int32)
+    seq = np.concatenate([seq, rng.integers(0, 5, (B - 8, l_max))]
+                         ).astype(np.int32)
     seq[np.arange(l_max)[None, :] >= slen[:, None]] = 0
     gc = np.full((B, ncap, 5), -1, np.int32)
     tctr = (pn >= 0).sum((1, 2)).astype(np.int32)
@@ -652,14 +746,26 @@ def glue_edge_case(ncap, l_max=64, seed=0):
             "seq": seq, "slen": slen}
 
 
-def glue_edge_tensors(ncap, dev, l_max=64, seed=0):
-    """glue_edge_case's windows on `dev`: (GraphState, seq, slen)."""
+def glue_edge_windows(batch):
+    """Which of glue_edge_case's windows a batch of `batch` takes: the
+    last first, then round again (numpy)."""
+    import numpy as np
+    n = len(GLUE_EDGE_CASES)
+    return (n - 1 - np.arange(batch)) % n
+
+
+def glue_edge_tensors(ncap, dev, l_max=64, seed=0, batch=None):
+    """glue_edge_case's windows on `dev`, or a batch of `batch` of them
+    (glue_edge_windows): (GraphState, seq, slen)."""
+    import numpy as np
     import torch
     from svscope_tpu_torch.ops import poa_fused_kernel as tpk
     c = glue_edge_case(ncap, l_max, seed)
+    idx = np.arange(len(GLUE_EDGE_CASES)) if batch is None \
+        else glue_edge_windows(batch)
 
     def t(a):
-        return torch.from_numpy(a).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev)
     return (tpk.GraphState(*[t(c[f]) for f in (
         "pn", "pw", "pt", "gc", "ch", "gm", "nn", "tctr", "ovf")]),
             t(c["seq"]), t(c["slen"]))
@@ -854,9 +960,21 @@ def run_workload(name, golden, dev, device_runs, host_runs):
     return launches, recs
 
 
+# The CLI as `python -m svscope_tpu_torch.cli` runs it, then the fused
+# build's count of host checks (COUNTS["host_syncs"]) on its last line.
+CLI_SNIPPET = """
+import sys
+from svscope_tpu_torch import cli
+from svscope_tpu_torch.ops import poa_fused
+cli.main(sys.argv[1:])
+print("[host_syncs]", poa_fused.COUNTS["host_syncs"])
+"""
+
+
 def check_cli(golden, extra=(), name="cli"):
     """Phases 5 and 10: the CLI on the synthetic pair, Raw.bed vs the
-    golden."""
+    golden, and no host check inside a fused build (the subprocess reports
+    COUNTS["host_syncs"]; 0 on the card).  Returns that count."""
     import localgraph_golden as lgg
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as d:
@@ -870,7 +988,7 @@ def check_cli(golden, extra=(), name="cli"):
             [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
                       if p])
         res = subprocess.run(
-            [sys.executable, "-m", "svscope_tpu_torch.cli", "localGraph",
+            [sys.executable, "-c", CLI_SNIPPET, "localGraph",
              "--device", "cuda", *extra, "-w", bed, "-T", tumor, "-N",
              normal, "-t", "S", "-n", "S", "-r", ref, "-s", out],
             cwd=HERE, env=env, capture_output=True, text=True, timeout=600)
@@ -882,7 +1000,16 @@ def check_cli(golden, extra=(), name="cli"):
             sha = hashlib.sha256(f.read()).hexdigest()
     if sha != golden["synth_pair"]["raw_bed_sha256"]:
         raise RuntimeError(f"{name}: CLI Raw.bed differs from the golden")
-    phase(name, t0, f"Raw.bed sha256 {sha[:16]} == golden")
+    said = [ln for ln in res.stdout.splitlines()
+            if ln.startswith("[host_syncs]")]
+    if not said:
+        raise RuntimeError(f"{name}: the CLI run reported no host_syncs")
+    syncs = int(said[-1].split()[1])
+    if syncs:
+        raise RuntimeError(f"{name}: {syncs} host syncs inside fused builds")
+    phase(name, t0, f"Raw.bed sha256 {sha[:16]} == golden; host syncs "
+          f"inside fused builds {syncs}")
+    return syncs
 
 
 class _Captured(Exception):
@@ -1101,7 +1228,8 @@ def check_glue(dev, caps, bench_cap, heavy_cap):
     the device, the plain versions as they run, on the bench round-12 and
     heavy round-200 captures, beside their bounds (tools/bounds.py).
     Returns ({kernel: max error}, {name: (ms, plain ms)}, {name: bound},
-    {name: Kahn steps a window, mean and max})."""
+    {name: Kahn steps a window, mean and max}, {name: K6's us a Kahn step
+    or K7's ns a rank})."""
     from svscope_tpu_torch.ops import poa_fused as tpf
     from svscope_tpu_torch.ops import poa_fused_kernel as tpk
     from svscope_tpu_torch.tools.bounds import consensus_bound, prep_bound
@@ -1127,14 +1255,14 @@ def check_glue(dev, caps, bench_cap, heavy_cap):
         st, seq, slen = glue_edge_tensors(ncap, dev)
         errs, n_cyc = glue_compare(st, seq, slen)
         check(errs, f"edge states ncap={ncap}")
-        if n_cyc != 2:
+        if n_cyc != len(GLUE_CYCLIC):
             raise RuntimeError(f"edge states ncap={ncap}: {n_cyc} cyclic "
-                               "windows, expected 2")
-        phase("pk-glue", t0, f"edge states B=8 ncap={ncap} "
+                               f"windows, expected {len(GLUE_CYCLIC)}")
+        phase("pk-glue", t0, f"edge states B={st.nn.shape[0]} ncap={ncap} "
               f"({'; '.join(GLUE_EDGE_CASES)}): K6 == plain, K7 == plain "
               f"(errors {errs}); cyclic windows {n_cyc}")
     t0 = time.perf_counter()
-    times, bounds, steps = {}, {}, {}
+    times, bounds, steps, ranks = {}, {}, {}, {}
     for sfx, cap, reps in (("", bench_cap, 2), (" heavy", heavy_cap, 1)):
         ops, st = cap[0], cap[1]
         seq, slen = ops[3][:, 1:].contiguous(), ops[4]
@@ -1160,14 +1288,27 @@ def check_glue(dev, caps, bench_cap, heavy_cap):
                                               order_only=True)[0]
         bounds["K7" + sfx] = consensus_bound(st.pn, st.nn, st.ch.shape[1])
         steps["K6" + sfx] = (float(k.mean()), int(k.max()))
+        ranks["K7" + sfx] = int(st.nn.max())
+    # a step's and a rank's cost: the kernel's time over the batch's
+    # longest window (its Kahn steps; its node count, K7's score pass)
+    per = {}
+    for sfx in ("", " heavy"):
+        for k in ("K6", "K6 order"):
+            per[k + sfx] = 1e3 * times[k + sfx][0] / steps["K6" + sfx][1]
+        per["K7" + sfx] = 1e6 * times["K7" + sfx][0] / ranks["K7" + sfx]
     phase("pk-glue-time", t0, "bench round 12 (B=128, ncap 1025) and heavy "
           "round 200 (B=32, ncap 3073) captures; kernel calls queued ahead "
           "of the device: " + ", ".join(
               f"{k} kernel {a:.4f} ms plain {b:.4f} ms bound "
               f"{bounds[k][0]:.6f} ms ({bounds[k][1]})" for k, (a, b) in
               times.items()) + "; Kahn steps a window (mean, max) "
-          + ", ".join(f"{k} {v[0]:.1f}, {v[1]}" for k, v in steps.items()))
-    return max_err, times, bounds, steps
+          + ", ".join(f"{k} {v[0]:.1f}, {v[1]}" for k, v in steps.items())
+          + "; us a Kahn step (the batch's most) " + ", ".join(
+              f"{k} {v:.4f}" for k, v in per.items() if "K6" in k)
+          + "; K7 ns a rank (the batch's largest nn: bench "
+          f"{ranks['K7']}, heavy {ranks['K7 heavy']}) " + ", ".join(
+              f"{k} {v:.2f}" for k, v in per.items() if "K7" in k))
+    return max_err, times, bounds, steps, per
 
 
 def k3_args(cap):
@@ -1378,9 +1519,11 @@ def fused_phase_split(dev):
     (the device is synchronised at each phase boundary), with K6 and K7
     and then, in the same call, with their plain versions (the build
     before them); each build's device launches and copies
-    (torch.profiler, a run of its own) and host syncs; and the launches of
-    one whole bench256 fused run (process_window_batch).  Returns
-    {mode: {"timing", "counts", "launches", "copies"}}."""
+    (torch.profiler, a run of its own) and host syncs; the launches of
+    one whole bench256 fused run (process_window_batch); and the heavy
+    tier's build split the same way, with the kernels.  Returns
+    {mode: {"timing", "counts", "launches", "copies"}}, "bench256" and
+    "heavy32x400"."""
     import torch
     import localgraph_golden as lgg
     from svscope_tpu_torch.engine.localgraph import process_window_batch
@@ -1411,6 +1554,17 @@ def fused_phase_split(dev):
     phase("bench256-fused-launches", t0, f"process_window_batch(bench256, "
           f"fused): device launches {whole}, copies {copies} "
           "(torch.profiler)")
+    # the heavy tier's 32 windows, one build of 400 rounds, with the kernels
+    # (its plain glue would take minutes)
+    jobs = [w.sequences for w in lgg.make_workload("heavy32x400")]
+    timing = {}
+    tpf.reset_counts()
+    tpf.fused_msa_batch(jobs, device=dev, timing=timing)
+    torch.cuda.synchronize()
+    out["heavy32x400"] = {"timing": timing, "counts": dict(tpf.COUNTS)}
+    phase("heavy32x400-fused-split", t0, f"kernels: {len(jobs)} windows: "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in timing.items())
+          + f"; counts {out['heavy32x400']['counts']}")
     return out
 
 
@@ -2652,7 +2806,7 @@ def main(argv=None):
     check_cli(golden)
 
     pk_err, bench_cap, heavy_cap, serial_walks, caps = check_pk_kernels(dev)
-    glue_err, glue_ms, glue_bounds, glue_steps = check_glue(
+    glue_err, glue_ms, glue_bounds, glue_steps, glue_per = check_glue(
         dev, caps, bench_cap, heavy_cap)
     del caps
     pk_ms, pk_bounds, pk_single = time_pk_kernels(bench_cap, heavy_cap, dev)
@@ -2800,6 +2954,9 @@ def main(argv=None):
                 for sh, sfx in (("bench", ""), ("heavy", " heavy"))}
         if k == "K4":
             entry["serial_walk_windows"] = serial_walks
+        if k == "K7":
+            entry["ns_per_rank"] = {"bench": glue_per["K7"],
+                                    "heavy": glue_per["K7 heavy"]}
         if k == "K6":
             # its order mode (the build's final order) and the Kahn steps
             entry["order_mode"] = {
@@ -2810,6 +2967,10 @@ def main(argv=None):
                 for sh, sfx in (("bench", ""), ("heavy", " heavy"))}
             entry["kahn_steps_mean_max"] = {"bench": glue_steps["K6"],
                                             "heavy": glue_steps["K6 heavy"]}
+            entry["us_per_kahn_step"] = {
+                sh: {"prep": glue_per["K6" + sfx],
+                     "order": glue_per["K6 order" + sfx]}
+                for sh, sfx in (("bench", ""), ("heavy", " heavy"))}
             # one stage-A batch's fused build, with the kernels and with
             # their plain versions (the build before them), same call
             entry["bench256_batch_build"] = split

@@ -473,13 +473,14 @@ def fusion(an, asx, ke, gminr, seqs5, st: GraphState, out=None):
 
 def prep_smem_bytes(ncap: int) -> int:
     """K6's dynamic shared memory (csrc/poa_pk_prep.cu prep_smem, which
-    refuses a launch past a block's limit): the window's edge words (8 a
-    node), reused by the sort's 8-byte keys (a power of two at least
-    ncap), then gm, the placement step, the blocker max and min and the
-    placed flags."""
-    p2 = 1 << max(ncap - 1, 0).bit_length()
-    return max(4 * MAX_PREDS * ncap, 8 * p2) + 16 * ncap + (-(-ncap // 16)
-                                                            * 16)
+    refuses a launch past a block's limit): each column's first four
+    blockers and heads (uint16), gm, the blocker and head list offsets,
+    the blocker counts and the placement list (int32), the unplaced and
+    ready column masks, the blocker and head lists (uint16, 8 a node) and
+    the placed flags."""
+    words = -(-ncap // 32)
+    return (16 * ncap + 4 * (5 * ncap + 2) + 8 * words
+            + 4 * MAX_PREDS * ncap + -(-ncap // 16) * 16)
 
 
 def _prep_fn():
@@ -566,9 +567,9 @@ def round_prep_cuda(st: GraphState, seq, slen, update_ovf: bool = False):
 def consensus_smem_bytes(ncap: int) -> int:
     """K7's dynamic shared memory (csrc/poa_pk_consensus.cu walk_smem):
     scores and best out-keys (int64), the order, best in-edges, stamp
-    minima and best out-edges (int32), and a 256-rank tile of pred and
+    minima and best out-edges (int32), and two 256-rank tiles of pred and
     weight rows."""
-    return 32 * ncap + 2 * 256 * MAX_PREDS * 4
+    return 32 * ncap + 2 * 2 * 256 * MAX_PREDS * 4
 
 
 def _consensus_fn():

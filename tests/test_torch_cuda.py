@@ -163,16 +163,21 @@ def test_pk_kernels_count_launches_and_reject_bad_input(pk_rounds):
                         seqv[:, 1:].contiguous(), st.clone())
 
 
+@pytest.mark.parametrize("batch", [1, 3, 13, 129])
 @pytest.mark.parametrize("ncap", [129, 1025, 3073])
-def test_k6_k7_edge_states_match_plain(dev, ncap):
+def test_k6_k7_edge_states_match_plain(dev, ncap, batch):
     """K6 (prep and order modes) and K7 == plain on glue_edge_case's
     windows (an empty graph, one node, 8 full in-slots, two cyclic
-    windows, an empty read, ncap - 1 nodes, columns and branches)."""
-    st, seq, slen = chip_smoke.glue_edge_tensors(ncap, dev)
+    windows, an empty read, ncap - 1 nodes, columns and branches, a head
+    with over 32 blockers, duplicate edges, a run of over 32 columns over
+    holes, one long chain, weights past 2^10 for K7's 64-bit keys), in
+    batches of 1, 3, 13 and 129 of them (the grid's edges)."""
+    st, seq, slen = chip_smoke.glue_edge_tensors(ncap, dev, batch=batch)
+    idx = chip_smoke.glue_edge_windows(batch)
     before = dict(tpk.LAUNCHES)
     errs, n_cyclic = chip_smoke.glue_compare(st, seq, slen)
     assert errs == {"K6": 0, "K7": 0}
-    assert n_cyclic == 2
+    assert n_cyclic == sum(int(b in chip_smoke.GLUE_CYCLIC) for b in idx)
     assert tpk.LAUNCHES["K6"] == before["K6"] + 2
     assert tpk.LAUNCHES["K7"] == before["K7"] + 1
 
@@ -219,6 +224,19 @@ def test_k6_k7_shared_memory_plans_match_the_kernels(dev):
     for n in (1, 2, 48, 65, 97, 129, 1025, 2049, 3073, 4096):
         assert prep(n) == tpk.prep_smem_bytes(n), n
         assert walk(n) == tpk.consensus_smem_bytes(n), n
+
+
+def test_glue_split_tool_on_card(dev):
+    """The stamped builds of K6 and K7 equal the kernels (measure raises
+    otherwise) and their parts cover each block's cycles."""
+    from svscope_tpu_torch.tools import glue_split
+    res = glue_split.measure("bench", dev, 2)
+    for key in ("K6", "K6 order", "K7"):
+        shares = [p["mean_share"] for p in res[key]["parts"].values()]
+        assert abs(sum(shares) - 1) < 1e-6, key
+    assert res["K6"]["cycles_per_step"] > 0
+    assert res["K7"]["cycles_per_rank"] > 0
+    assert min(res["K6"]["step_parts"].values()) > 0
 
 
 def test_fused_build_reads_nothing_back(dev):

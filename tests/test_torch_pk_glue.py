@@ -4,11 +4,15 @@ per-window loop (tests/torch_glue_model.py) against the JAX package's
 TPU chain flags and packing) and `_consensus_walk`, and against the port's
 batched plain versions (ops/poa_fused.toposort_reference,
 pk_round_prep_reference, consensus_walk_reference), on the same seeded
-states: chip_smoke.glue_edge_case's eight windows (an empty graph, one
-node, 8 full in-slots, cyclic states, an empty read, ncap - 1 nodes) at
-ncap 129, 1025 and 3073, and real rounds of the port's own build.  Every
-output is an integer: exact equality.  The kernels themselves run only on
-the card (tests/test_torch_cuda.py, chip_smoke.py's pk-glue phase)."""
+states: chip_smoke.glue_edge_case's thirteen windows (an empty graph,
+one node, 8 full in-slots, cyclic states, an empty read, ncap - 1 nodes, a
+head with over 32 blockers, duplicate edges, a run of over 32 columns over
+holes, one long chain, weights past 2^10) at ncap 129, 1025 and 3073, and
+real rounds of the port's own build.  Every output is an integer: exact
+equality (against JAX's _consensus_walk only within JAX's stated key
+range: its int32 keys wrap past weights of 2^10).  The kernels themselves
+run only on the card (tests/test_torch_cuda.py, chip_smoke.py's pk-glue
+phase)."""
 import functools
 import random
 
@@ -29,7 +33,8 @@ from test_torch_pk_build import encode
 torch.set_num_threads(1)
 NCAPS = (129, 1025, 3073)
 L_MAX = 64
-CYCLIC = [False, False, False, True, False, True, False, False]
+B = len(chip_smoke.GLUE_EDGE_CASES)
+CYCLIC = [b in chip_smoke.GLUE_CYCLIC for b in range(B)]
 FIELDS = ("pn", "pw", "pt", "gc", "ch", "gm", "nn", "tctr", "ovf")
 
 
@@ -46,7 +51,7 @@ def state(c):
 def prep_models(ncap):
     c = edge(ncap)
     return [model.prep_window(c["pn"][b], c["gm"][b], c["nn"][b], c["ch"][b],
-                              c["seq"][b], c["slen"][b]) for b in range(8)]
+                              c["seq"][b], c["slen"][b]) for b in range(B)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -80,12 +85,14 @@ def test_k6_model_order_matches_jax(ncap):
 @pytest.mark.parametrize("ncap", NCAPS)
 def test_k6_model_round_prep_matches_jax(ncap):
     c = edge(ncap)
+    # JAX packs chain flags 8 windows at a time: pad the batch to 16
+    c = {k: np.concatenate([v, v[:16 - B]]) for k, v in c.items()}
     gs, nn, _tctr, _ovf = tpk.graph_state_to_jax(state(c))
     ops, cyc = jax.jit(lambda g, n, s, sl: jpf._pk_round_prep(
         g, n, s, sl, ncap, L_MAX))(gs, nn, c["seq"], c["slen"])
     (chars, sinks, packed, _chain_all, _chainw, gminr, seqv, lb,
      nn_eff) = [np.asarray(o) for o in ops]
-    predsp = packed.reshape(8, -1, 8)[:, :ncap]
+    predsp = packed.reshape(16, -1, 8)[:, :ncap]
     for b, m in enumerate(prep_models(ncap)):
         for name, want in (("charsr", chars), ("sinksr", sinks),
                            ("predsp", predsp), ("gminr", gminr),
@@ -139,6 +146,8 @@ def test_k7_model_matches_jax(ncap):
                                        c["nn"], order)
     want = [np.asarray(x) for x in want]
     for b, got in enumerate(consensus_models(ncap)):
+        if b == chip_smoke.GLUE_WIDE:
+            continue                      # past JAX's int32 key range
         for name, g, w in zip(("back_buf", "back_start", "fwd_buf",
                                "fwd_cnt"), got, want):
             np.testing.assert_array_equal(g, w[b], err_msg=f"{name} {b}")
@@ -203,6 +212,74 @@ def test_glue_model_on_real_rounds():
                                "fwd_cnt"), walk, got):
             np.testing.assert_array_equal(w[b].numpy(), g, err_msg=name)
             np.testing.assert_array_equal(built[name][b], g, err_msg=name)
+
+
+@pytest.mark.parametrize("ncap", NCAPS)
+def test_edge_windows_stress_the_new_design(ncap):
+    """The windows added for the warp-driven Kahn loop and the 32-bit score
+    chain ask what they were built to ask: a head column with over 32
+    distinct blockers, a column pair named by several edges and a row
+    naming a tail twice, a run of over 32 columns whose span holds placed
+    columns and alternatives, one long chain placed in one step, and one
+    window (only that one) past the 32-bit keys; and K7's score pass stops
+    at each window's own node count, the cyclic windows included."""
+    c = edge(ncap)
+    m = prep_models(ncap)
+    assert m[8]["blockers"] > 32
+    assert m[9]["duplicates"] > 0
+    rows = c["pn"][9][:c["nn"][9]]
+    assert any(len(set(r[r >= 0])) < (r >= 0).sum() for r in rows)
+    assert m[10]["max_run"] > 32 and m[10]["max_span"] > m[10]["max_run"]
+    assert m[10]["steps"] == 2 and m[10]["max_words"] > 1
+    assert m[11]["steps"] == 1 and m[11]["max_run"] == ncap - 1
+    batch = int(c["nn"].max())
+    plans = [model.score_plan(c["pn"][b], c["pw"][b], c["nn"][b],
+                              m[b]["order"], batch) for b in range(B)]
+    assert [p[0] for p in plans] == c["nn"].tolist()
+    assert [p[1] for p in plans] == [64 if b == chip_smoke.GLUE_WIDE else 32
+                                     for b in range(B)]
+    assert (c["pw"][chip_smoke.GLUE_WIDE] >= 1 << 10).any()
+
+
+@pytest.mark.parametrize("ncap", NCAPS)
+def test_k7_model_key_widths_agree(ncap):
+    """Where 32-bit keys hold, the score pass with 64-bit keys (the plain
+    version's) gives the same walk: the max key's two fields are the
+    winner's weight and tail score."""
+    c = edge(ncap)
+    batch = int(c["nn"].max())
+    for b, m in enumerate(prep_models(ncap)):
+        if b == chip_smoke.GLUE_WIDE:
+            continue
+        args = (c["pn"][b], c["pw"][b], c["pt"][b], c["nn"][b], m["order"],
+                batch)
+        for g, w in zip(model.consensus_window(*args, key_bits=32),
+                        model.consensus_window(*args, key_bits=64)):
+            np.testing.assert_array_equal(g, w, err_msg=str(b))
+
+
+@pytest.mark.parametrize("ncap", NCAPS[:2])
+def test_k7_model_any_order_matches_plain(ncap):
+    """On orders that are not K6's (a seeded permutation a window, so
+    active nodes sit past a window's node count), the model's score pass,
+    which stops past the last rank holding an active node, == the plain
+    version, which runs to the batch's largest node count."""
+    c = edge(ncap)
+    st = state(c)
+    rng = np.random.default_rng(ncap)
+    order = np.stack([rng.permutation(ncap) for _ in range(B)])
+    got = tpf.consensus_walk_reference(st.ch, st.pn, st.pw, st.pt, st.nn,
+                                       torch.from_numpy(order))
+    batch = int(c["nn"].max())
+    steps = []
+    for b in range(B):
+        want = model.consensus_window(c["pn"][b], c["pw"][b], c["pt"][b],
+                                      c["nn"][b], order[b], batch)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g[b].numpy(), w, err_msg=str(b))
+        steps.append(model.score_plan(c["pn"][b], c["pw"][b], c["nn"][b],
+                                      order[b], batch)[0])
+    assert any(s > n for s, n in zip(steps, c["nn"]))
 
 
 @pytest.mark.parametrize("ncap", NCAPS[:2])
