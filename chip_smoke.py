@@ -27,9 +27,15 @@ non-zero before the final line:
      process_window_batch with device POA (the kernel): every record's
      sha256 equals tests/data/jax_localgraph_golden.json, the records
      equal the port's host-POA run, the kernel launch count of that run is
-     > 0; warm windows/s for device and host POA.
-  4. the heavy tier (32 windows x 400 reads): golden 32/32, its K1
-     launches (K1's main path is both runs, each counted from 0), w/s.
+     > 0; poa_batch.COUNTS of that run printed, and a failure unless its
+     per-window Python pack and fuse calls are 0 and the C++ batch
+     entries ran; warm windows/s for device and host POA; then the device
+     round's six parts (poa_msa_batch(timing=): pack, h2d, K1, d2h,
+     unpack, fuse) over one MSA build of the first 128 windows, its MSAs
+     == the host engine's.
+  4. the heavy tier (32 windows x 400 reads): the same (golden 32/32, its
+     K1 launches, the counts, w/s, the parts of a build of the 32
+     windows); K1's main path is both runs, each counted from 0.
   5. the CLI: `localGraph --device cuda` (svscope_tpu_torch.cli's main in
      a subprocess, which then prints poa_fused.COUNTS["host_syncs"]) on
      the synthetic BAM pair; Raw.bed sha256 equals the golden, and the
@@ -904,13 +910,17 @@ def check_kernel(dev):
 
 
 def run_workload(name, golden, dev, device_runs, host_runs):
-    """Phases 3/4: golden check, launch count, device/host equality,
-    warm windows/s (best of the warm runs)."""
+    """Phases 3/4: golden check, launch count, the device rounds' counts
+    (poa_batch.COUNTS: no per-window Python pack or fuse, the batch
+    entries called), device/host equality, warm windows/s (best of the
+    warm runs), then the device round's six parts over one MSA build of a
+    pipeline chunk's windows."""
     import torch
     import localgraph_golden as lgg
-    from svscope_tpu_torch.engine.localgraph import (process_window_batch,
+    from svscope_tpu_torch.engine.localgraph import (PIPELINE_CHUNK,
+                                                     process_window_batch,
                                                      record_line)
-    from svscope_tpu_torch.ops import poa_align
+    from svscope_tpu_torch.ops import poa_align, poa_batch
     g = golden["workloads"][name]
     wins = lgg.make_workload(name)
     if lgg.payload_sha256(wins) != g["payload_sha256"]:
@@ -918,9 +928,11 @@ def run_workload(name, golden, dev, device_runs, host_runs):
                            "golden's (numpy drew other inputs)")
     t0 = time.perf_counter()
     poa_align.reset_launches()
+    poa_batch.reset_counts()
     recs = process_window_batch(wins, device=dev)   # policy: the kernel
     torch.cuda.synchronize()
     launches = poa_align.LAUNCHES
+    counts = dict(poa_batch.COUNTS)
     cold = time.perf_counter() - t0
     hashes = [lgg.sha256(record_line(r)) for r in recs]
     same = sum(a == b for a, b in zip(hashes, g["records"]))
@@ -931,6 +943,11 @@ def run_workload(name, golden, dev, device_runs, host_runs):
         raise RuntimeError(f"{name}: the main path launched no kernel")
     if n_em < 0.8 * len(wins):
         raise RuntimeError(f"{name}: only {n_em} EMOutput records")
+    print(f"  [{name}] poa_batch.COUNTS {json.dumps(counts)}", flush=True)
+    if counts["window_packs"] or counts["window_fuses"] \
+            or not counts["chunks"]:
+        raise RuntimeError(f"{name}: the device rounds packed or fused a "
+                           f"window at a time, or not in batches: {counts}")
     phase(name, t0, f"golden {same}/{len(wins)}, kernel launches "
           f"{launches}, EMOutput {n_em}/{len(wins)}, cold {cold:.3f} s")
     t0 = time.perf_counter()
@@ -957,6 +974,22 @@ def run_workload(name, golden, dev, device_runs, host_runs):
           f"{[round(s, 4) for s in dev_s]}), host POA "
           f"{n / min(host_s):.3f} w/s (runs "
           f"{[round(s, 4) for s in host_s]}), records device == host")
+    t0 = time.perf_counter()
+    jobs = [w.sequences for w in wins[:PIPELINE_CHUNK]]
+    parts = {}
+    t = time.perf_counter()
+    msa = poa_batch.poa_msa_batch(jobs, use_device="pallas", device=dev,
+                                  timing=parts)
+    wall = time.perf_counter() - t
+    if msa != poa_batch.poa_msa_batch(jobs, device=dev):
+        raise RuntimeError(f"{name}: the timed device MSA build differs "
+                           "from the host engine's")
+    phase(name + "-round-parts", t0,
+          f"one MSA build of {len(jobs)} windows {wall * 1e3:.1f} ms, its "
+          "rounds' parts " + ", ".join(
+              f"{p} {parts.get(p, 0.0) * 1e3:.1f} ms"
+              for p in poa_batch.ROUND_PARTS)
+          + f" (sum {sum(parts.values()) * 1e3:.1f} ms); == host MSAs")
     return launches, recs
 
 

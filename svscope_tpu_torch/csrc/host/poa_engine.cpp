@@ -11,15 +11,20 @@
 #include <algorithm>
 #include <atomic>
 #include <chrono>
+#include <condition_variable>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <functional>
 #include <map>
+#include <mutex>
 #include <queue>
 #include <string>
 #include <thread>
 #include <vector>
+
+#include <pthread.h>
 
 #ifdef __AVX512F__
 #include <immintrin.h>
@@ -71,6 +76,7 @@ struct Graph {
   std::vector<std::vector<int>> paths;      // per-sequence node path
   std::vector<int> rank;
   bool order_dirty = true;
+  int max_indeg = 0;  // largest in_edges size (edges are never removed)
 
   // Incrementally maintained aligned-group structure.  Group ids equal
   // the from-scratch discovery order (ranks of min-member node ids):
@@ -139,6 +145,7 @@ struct Graph {
     heads.push_back(head);
     out_w[tail].push_back(1);
     in_edges[head].push_back(tail);
+    max_indeg = std::max(max_indeg, in_edges[head].size());
     int32_t gt = group[tail], gh = group[head];
     if (gt != gh) {
       bool seen = false;
@@ -623,6 +630,142 @@ std::string consensus(Graph& g) {
   return out;
 }
 
+// A persistent pool for the device rounds' batch entries, which run well
+// under a ms of work per call: on the H100 host the port is measured on,
+// starting threads on each call cost more than the work (PERF.md §6).
+// One job at a time (callers from several threads queue on
+// submit_m_), the caller working beside the helpers; helpers start on
+// first need, then sleep on cv_ and take on the caller's CPU affinity
+// with each job.  Never deleted (threads blocked at exit are the
+// process's to end); a forked child starts a fresh pool.
+class Pool {
+ public:
+  void run(int64_t n, int nt, const std::function<void(int64_t)>& fn) {
+    cpu_set_t cpus;
+    pthread_getaffinity_np(pthread_self(), sizeof cpus, &cpus);
+    std::lock_guard<std::mutex> job(submit_m_);
+    {
+      std::lock_guard<std::mutex> lk(m_);
+      while ((int)workers_.size() < nt - 1) {
+        const int id = (int)workers_.size();
+        const uint64_t seen = gen_;
+        workers_.emplace_back([this, id, seen]() { loop(id, seen); });
+      }
+      fn_ = &fn;
+      cpus_ = cpus;
+      n_ = n;
+      next_.store(0);
+      helpers_ = nt - 1;
+      busy_ = nt - 1;
+      gen_++;
+    }
+    cv_.notify_all();
+    drain();
+    std::unique_lock<std::mutex> lk(m_);
+    done_cv_.wait(lk, [&]() { return busy_ == 0; });
+  }
+
+ private:
+  void drain() {
+    for (int64_t i = next_.fetch_add(1); i < n_; i = next_.fetch_add(1))
+      (*fn_)(i);
+  }
+
+  void loop(int id, uint64_t seen) {
+    cpu_set_t mine;
+    pthread_getaffinity_np(pthread_self(), sizeof mine, &mine);
+    for (;;) {
+      cpu_set_t want;
+      {
+        std::unique_lock<std::mutex> lk(m_);
+        cv_.wait(lk, [&]() { return gen_ != seen; });
+        seen = gen_;
+        if (id >= helpers_) continue;
+        want = cpus_;
+      }
+      if (!CPU_EQUAL(&mine, &want)) {
+        mine = want;
+        pthread_setaffinity_np(pthread_self(), sizeof mine, &mine);
+      }
+      drain();
+      std::lock_guard<std::mutex> lk(m_);
+      if (--busy_ == 0) done_cv_.notify_one();
+    }
+  }
+
+  std::mutex submit_m_, m_;
+  std::condition_variable cv_, done_cv_;
+  std::vector<std::thread> workers_;
+  const std::function<void(int64_t)>* fn_ = nullptr;
+  cpu_set_t cpus_;
+  int64_t n_ = 0;
+  std::atomic<int64_t> next_{0};
+  int helpers_ = 0, busy_ = 0;
+  uint64_t gen_ = 0;
+};
+
+std::atomic<Pool*> g_pool{nullptr};
+
+Pool& pool() {
+  Pool* p = g_pool.load();
+  if (p) return *p;
+  static const bool registered = [] {
+    pthread_atfork(nullptr, nullptr, [] { g_pool.store(nullptr); });
+    return true;
+  }();
+  (void)registered;
+  Pool* fresh = new Pool();
+  if (g_pool.compare_exchange_strong(p, fresh)) return *fresh;
+  delete fresh;
+  return *p;
+}
+
+// Run fn(i) for every i in [0, n) on up to n_threads threads of the pool
+// drawing i from one atomic counter, so each item is touched by one
+// thread only.
+void parallel_for(int64_t n, int32_t n_threads,
+                  const std::function<void(int64_t)>& fn) {
+  if (n_threads <= 1 || n <= 1) {
+    for (int64_t i = 0; i < n; i++) fn(i);
+    return;
+  }
+  pool().run(n, (int)std::min<int64_t>(n_threads, n), fn);
+}
+
+// Pack g for the device kernel into one window's rows: chars_out (n_max)
+// ascii, preds_out (n_max*p_max) rank ids, sink_out (n_max) 0/1,
+// node_of_rank (n_max); rows and slots past the graph's own hold 0 / -1.
+// Returns n_nodes, or -1 (rows unwritten) past n_max nodes or p_max
+// in-degree.
+int pack_rows(Graph& g, int n_max, int p_max, uint8_t* chars_out,
+              int32_t* preds_out, uint8_t* sink_out, int32_t* node_of_rank) {
+  const std::vector<int>& order = g.topo_order();
+  const int n = (int)order.size();
+  if (n > n_max) return -1;
+  for (int v : order)
+    if ((int)g.in_edges[v].size() > p_max) return -1;
+  thread_local std::vector<int> pos_of;
+  pos_of.resize(g.n_nodes());
+  for (int i = 0; i < n; i++) pos_of[order[i]] = i;
+  for (int i = 0; i < n; i++) {
+    const int node = order[i];
+    const Adj& in = g.in_edges[node];
+    chars_out[i] = (uint8_t)g.chars[node];
+    node_of_rank[i] = node;
+    int32_t* row = preds_out + (size_t)i * p_max;
+    int k = 0;
+    for (; k < in.size(); k++) row[k] = pos_of[in[k]];
+    for (; k < p_max; k++) row[k] = -1;
+    sink_out[i] = g.out_edges[node].empty() ? 1 : 0;
+  }
+  memset(chars_out + n, 0, n_max - n);
+  memset(sink_out + n, 0, n_max - n);
+  std::fill(preds_out + (size_t)n * p_max, preds_out + (size_t)n_max * p_max,
+            -1);
+  std::fill(node_of_rank + n, node_of_rank + n_max, -1);
+  return n;
+}
+
 }  // namespace
 
 extern "C" {
@@ -632,12 +775,7 @@ void poa_free(void* h) { delete (Graph*)h; }
 int poa_n_nodes(void* h) { return ((Graph*)h)->n_nodes(); }
 int poa_n_seqs(void* h) { return (int)((Graph*)h)->paths.size(); }
 
-int poa_max_indegree(void* h) {
-  Graph& g = *(Graph*)h;
-  int mx = 0;
-  for (auto& v : g.in_edges) mx = std::max(mx, (int)v.size());
-  return mx;
-}
+int poa_max_indegree(void* h) { return ((Graph*)h)->max_indeg; }
 
 void poa_add_sequence(void* h, const char* seq, int len) {
   Graph& g = *(Graph*)h;
@@ -682,26 +820,8 @@ void poa_fuse(void* h, const int32_t* nodes, const int32_t* spos, int n,
 // pad); sink_out (n_max) 0/1; node_of_rank (n_max).
 int poa_pack(void* h, int n_max, int p_max, uint8_t* chars_out,
              int32_t* preds_out, uint8_t* sink_out, int32_t* node_of_rank) {
-  Graph& g = *(Graph*)h;
-  const std::vector<int>& order = g.topo_order();
-  int n = (int)order.size();
-  if (n > n_max) return -1;
-  std::vector<int> pos_of(g.n_nodes());
-  for (int i = 0; i < n; i++) pos_of[order[i]] = i;
-  memset(chars_out, 0, n_max);
-  memset(sink_out, 0, n_max);
-  for (int i = 0; i < n_max * p_max; i++) preds_out[i] = -1;
-  for (int i = 0; i < n_max; i++) node_of_rank[i] = -1;
-  for (int i = 0; i < n; i++) {
-    int node = order[i];
-    chars_out[i] = (uint8_t)g.chars[node];
-    node_of_rank[i] = node;
-    if ((int)g.in_edges[node].size() > p_max) return -1;
-    for (size_t k = 0; k < g.in_edges[node].size(); k++)
-      preds_out[i * p_max + k] = pos_of[g.in_edges[node][k]];
-    sink_out[i] = g.out_edges[node].empty() ? 1 : 0;
-  }
-  return n;
+  return pack_rows(*(Graph*)h, n_max, p_max, chars_out, preds_out, sink_out,
+                   node_of_rank);
 }
 
 // MSA: writes ncol then row strings ('-' padded) into out (n_seqs * ncol
@@ -849,6 +969,110 @@ int poa_msa_batch(const char* seqs, const int64_t* seq_off, int64_t n_seqs,
   }
   for (int64_t w = 0; w < n_windows; w++)
     if (status[w]) return (int)(w + 1);
+  return 0;
+}
+
+// The per-round device path's batch entries: one call a round (stat) or a
+// bucket chunk (pack, fuse) over an array of graph handles, each graph
+// touched by one thread only.
+
+// Node count and largest in-degree of each graph, the two numbers that
+// decide its route (device bucket, oversize wavefront or host DP) before
+// anything is packed.  Both are kept as the graph grows, so one serial
+// pass reads them.
+void poa_stat_batch(void* const* handles, int64_t n, int32_t* n_nodes_out,
+                    int32_t* max_indeg_out) {
+  for (int64_t i = 0; i < n; i++) {
+    const Graph& g = *(const Graph*)handles[i];
+    n_nodes_out[i] = g.n_nodes();
+    max_indeg_out[i] = g.max_indeg;
+  }
+}
+
+// Pack one (n_max, l_max) chunk of a round: window i's graph into row i of
+// chars (b_pad, n_max), preds (b_pad, n_max, p_max), sinks, n_nodes and
+// node_of_rank (b_pad, n_max), and its read (reads + seq_off[seq_idx[i]])
+// into reads (b_pad, l_max, zero-padded) and lens; rows n..b_pad-1 repeat
+// row 0.  Returns 0, or i+1 for the first window that does not fit (rows
+// then unspecified).
+int poa_pack_batch(void* const* handles, int64_t n, int64_t b_pad,
+                   int32_t n_max, int32_t p_max, int32_t l_max,
+                   const char* reads_in, const int64_t* seq_off,
+                   const int64_t* seq_idx, uint8_t* chars, int32_t* preds,
+                   uint8_t* sinks, int32_t* n_nodes, int32_t* node_of_rank,
+                   uint8_t* reads, int32_t* lens, int32_t n_threads) {
+  std::vector<uint8_t> bad((size_t)n, 0);
+  parallel_for(n, n_threads, [&](int64_t i) {
+    const int64_t s = seq_idx[i];
+    const int64_t len = seq_off[s + 1] - seq_off[s];
+    const int nn = len > l_max ? -1 : pack_rows(
+        *(Graph*)handles[i], n_max, p_max, chars + i * n_max,
+        preds + i * n_max * p_max, sinks + i * n_max,
+        node_of_rank + i * n_max);
+    if (nn < 0) {
+      bad[i] = 1;
+      return;
+    }
+    n_nodes[i] = nn;
+    uint8_t* row = reads + i * l_max;
+    memcpy(row, reads_in + seq_off[s], len);
+    memset(row + len, 0, l_max - len);
+    lens[i] = (int32_t)len;
+  });
+  for (int64_t i = 0; i < n; i++)
+    if (bad[i]) return (int)(i + 1);
+  // batch padding: replicate row 0
+  auto rep = [&](auto* a, int64_t width) {
+    for (int64_t i = n; i < b_pad; i++)
+      std::copy(a, a + width, a + i * width);
+  };
+  rep(chars, n_max);
+  rep(preds, (int64_t)n_max * p_max);
+  rep(sinks, n_max);
+  rep(n_nodes, 1);
+  rep(node_of_rank, n_max);
+  rep(reads, l_max);
+  rep(lens, 1);
+  return 0;
+}
+
+// Fuse one chunk's alignments: window i's kernel rows aln_nodes/aln_spos
+// (width entries each, right-aligned after k_end[i]; -2 pads, -1 gaps)
+// are unpacked as ops/poa_device.unpack_alignment_arrays does (entries
+// past k_end[i], -2 dropped, ranks through node_of_rank row i, n_max
+// wide) and fused into its graph with its read.  Unpack is one serial
+// pass over every window's rows, then fuse runs on the pool; seconds[0]
+// and [1] get the two passes' wall times.  Returns 0, or i+1 for the
+// first window whose rows name no rank of its bucket (nothing fused
+// then).
+int poa_fuse_batch(void* const* handles, int64_t n, const int32_t* aln_nodes,
+                   const int32_t* aln_spos, int64_t width,
+                   const int32_t* k_end, const int32_t* node_of_rank,
+                   int32_t n_max, const char* reads, const int64_t* seq_off,
+                   const int64_t* seq_idx, int32_t n_threads,
+                   double* seconds) {
+  using clk = std::chrono::steady_clock;
+  auto t0 = clk::now();
+  std::vector<std::vector<std::pair<int, int>>> alns((size_t)n);
+  for (int64_t i = 0; i < n; i++) {
+    const int32_t* an = aln_nodes + i * width;
+    const int32_t* as = aln_spos + i * width;
+    const int32_t* nor = node_of_rank + i * n_max;
+    auto& aln = alns[i];
+    aln.reserve(width);
+    for (int64_t k = std::max<int64_t>(k_end[i] + 1, 0); k < width; k++) {
+      const int32_t r = an[k];
+      if (r == -2) continue;
+      if (r < -1 || r >= n_max) return (int)(i + 1);
+      aln.emplace_back(r >= 0 ? nor[r] : -1, as[k]);
+    }
+  }
+  auto t1 = clk::now();
+  parallel_for(n, n_threads, [&](int64_t i) {
+    fuse(*(Graph*)handles[i], alns[i], reads + seq_off[seq_idx[i]]);
+  });
+  seconds[0] = std::chrono::duration<double>(t1 - t0).count();
+  seconds[1] = std::chrono::duration<double>(clk::now() - t1).count();
   return 0;
 }
 

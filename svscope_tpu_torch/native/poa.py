@@ -3,8 +3,10 @@
 NativePoaGraph mirrors ops/poa.PoaGraph's build/align/fuse/pack/MSA/
 consensus surface with identical semantics; `poa_native(sequences)` is the
 drop-in spoa-equivalent entry point.  The device rounds
-(ops/poa_batch.py) use these graphs for packing and fusion so the per-read
-bookkeeping runs at C++ speed.
+(ops/poa_batch.py) route, pack and fuse these graphs a round or a bucket
+chunk at a time through the engine's batch entries (poa_stat_batch,
+poa_pack_batch, poa_fuse_batch), so the per-read bookkeeping runs at C++
+speed on the engine's thread pool.
 """
 from __future__ import annotations
 
@@ -64,6 +66,21 @@ def lib():
         l.poa_msa.argtypes = [ct.c_void_p, ct.c_int, ct.POINTER(ct.c_uint8)]
         l.poa_consensus.argtypes = [ct.c_void_p, ct.c_int,
                                     ct.POINTER(ct.c_uint8)]
+        # the per-round device path's batch entries (an engine without
+        # them raises AttributeError here)
+        vp, i32, i64 = ct.c_void_p, ct.c_int32, ct.c_int64
+        pv, p8, p32, p64 = (ct.POINTER(vp), ct.POINTER(ct.c_uint8),
+                            ct.POINTER(i32), ct.POINTER(i64))
+        l.poa_stat_batch.restype = None
+        l.poa_stat_batch.argtypes = [pv, i64, p32, p32]
+        l.poa_pack_batch.restype = ct.c_int
+        l.poa_pack_batch.argtypes = [pv, i64, i64, i32, i32, i32,
+                                     ct.c_char_p, p64, p64, p8, p32, p8,
+                                     p32, p32, p8, p32, i32]
+        l.poa_fuse_batch.restype = ct.c_int
+        l.poa_fuse_batch.argtypes = [pv, i64, p32, p32, i64, p32, p32, i32,
+                                     ct.c_char_p, p64, p64, i32,
+                                     ct.POINTER(ct.c_double)]
         _lib = declare_msa_batch(l)
     return _lib
 
@@ -162,25 +179,30 @@ def _i64p(a):
     return a.ctypes.data_as(ct.POINTER(ct.c_int64))
 
 
+def flatten_reads(seq_lists: list[list[str]]):
+    """Every window's reads as one byte blob: (blob, seq_off, win_off),
+    read k of window w at blob[seq_off[i]:seq_off[i + 1]], i = win_off[w]
+    + k."""
+    flat = [s.encode() for seqs in seq_lists for s in seqs]
+    win_off = np.zeros(len(seq_lists) + 1, np.int64)
+    win_off[1:] = np.cumsum([len(s) for s in seq_lists], dtype=np.int64)
+    seq_off = np.zeros(len(flat) + 1, np.int64)
+    seq_off[1:] = np.cumsum([len(b) for b in flat], dtype=np.int64)
+    return b"".join(flat), seq_off, win_off
+
+
 def pack_msa_batch(seq_lists: list[list[str]]):
     """poa_msa_batch's input: (blob, seq_off, win_off, est, safe), est and
     safe the two output capacities a window: a realistic MSA width (~2x
     the longest read) and the no-fusion worst case (every base)."""
-    flat: list[bytes] = []
-    win_off = np.zeros(len(seq_lists) + 1, np.int64)
-    for w, seqs in enumerate(seq_lists):
-        flat.extend(s.encode() for s in seqs)
-        win_off[w + 1] = len(flat)
-    seq_off = np.zeros(len(flat) + 1, np.int64)
-    for i, b in enumerate(flat):
-        seq_off[i + 1] = seq_off[i] + len(b)
+    blob, seq_off, win_off = flatten_reads(seq_lists)
     est, safe = 1024, 1024
     for w, seqs in enumerate(seq_lists):
         total = int(seq_off[win_off[w + 1]] - seq_off[win_off[w]])
         longest = max((len(s) for s in seqs), default=0)
         est = max(est, (len(seqs) + 2) * (2 * longest + 260))
         safe = max(safe, (len(seqs) + 2) * (total + 2))
-    return b"".join(flat), seq_off, win_off, est, safe
+    return blob, seq_off, win_off, est, safe
 
 
 def msa_batch_bytes(packed, threads: int, engine=None):

@@ -6,7 +6,9 @@ Three execution modes, identical results:
     window's reads directly, fanned out over its thread pool.
   * device mode: round r aligns the r-th read of EVERY window in one
     `ops.poa_align.align_batch` call per (node bucket, length bucket); the
-    C++ engine packs the graphs and fuses the alignments between rounds.
+    C++ engine routes, packs and fuses between rounds through its batch
+    entries, one call a step over the round's windows or a bucket chunk's
+    (threaded over `threads`), with pinned host buffers on a CUDA device.
     On a CUDA device that call is the hand-written kernel; on the CPU it
     is the kernel's plain torch version.
   * fused mode: the whole MSA build stays on the device
@@ -23,20 +25,22 @@ each per-round batch is split over its devices.
 """
 from __future__ import annotations
 
-import ctypes
+import ctypes as ct
 import os
 import subprocess
+import threading
 import time
 
 import numpy as np
+import torch
 
-from ..native.poa import NativePoaGraph
+from ..native.poa import NativePoaGraph, flatten_reads
 from ..native.poa import lib as native_lib
 from ..native.poa import poa_msa_batch_native, poa_native
-from ..parallel.dataparallel import shard_batch
+from ..parallel.dataparallel import data_mesh, shard_batch
 from . import poa_align
 from .poa_fused import fused_msa_batch
-from .poa_device import MAX_PREDS, to_torch_packed, unpack_alignment_arrays
+from .poa_device import MAX_PREDS
 from ..utils.device import resolve_device
 from ..utils.spans import Spans
 
@@ -53,7 +57,25 @@ PLANE_BUDGET_BYTES = 4 << 30
 # the parts of a device round that poa_msa_batch(timing=) times
 ROUND_PARTS = ("pack", "h2d", "K1", "d2h", "unpack", "fuse")
 
+# per-window Python pack and fuse calls (the oversize wavefront's windows,
+# the one route that still packs and fuses a window at a time; 0 on a
+# build whose windows all fit the buckets), and the bucket chunks packed
+# and fused by the C++ batch entries
+COUNTS = {"window_packs": 0, "window_fuses": 0, "chunks": 0}
+_count_lock = threading.Lock()
+
 _DEFAULT_OVERSIZE = None   # device tuple of the oversize wavefront
+
+
+def reset_counts() -> None:
+    with _count_lock:
+        for k in COUNTS:
+            COUNTS[k] = 0
+
+
+def _count(key: str) -> None:
+    with _count_lock:
+        COUNTS[key] += 1
 
 
 def set_default_oversize_mesh(mesh) -> None:
@@ -64,22 +86,6 @@ def set_default_oversize_mesh(mesh) -> None:
     _DEFAULT_OVERSIZE = None if mesh is None else tuple(mesh)
 
 
-class _Graph(NativePoaGraph):
-    """C++ POA graph that also fuses an alignment given as int32 arrays.
-    NativePoaGraph.fuse takes [(node, seq_pos)] pairs and rebuilds the
-    arrays in Python for every read; the device rounds hand the arrays
-    straight to the same C entry point."""
-
-    def fuse_arrays(self, nodes: np.ndarray, spos: np.ndarray,
-                    seq: str) -> None:
-        i32p = ctypes.POINTER(ctypes.c_int32)
-        nodes = np.ascontiguousarray(nodes, np.int32)
-        spos = np.ascontiguousarray(spos, np.int32)
-        self._lib.poa_fuse(self._h, nodes.ctypes.data_as(i32p),
-                           spos.ctypes.data_as(i32p), len(nodes),
-                           seq.encode())
-
-
 def _bucket(x, ladder):
     for b in ladder:
         if x <= b:
@@ -88,11 +94,13 @@ def _bucket(x, ladder):
 
 
 def _require_native():
-    """Load (or build) the C++ POA engine; its failure raises with the
-    loader's own cause (no Python fallback)."""
+    """Load (or build) the C++ POA engine with every entry declared; its
+    failure (an entry missing included) raises with the loader's own
+    cause (no Python fallback)."""
     try:
         native_lib()
-    except (OSError, RuntimeError, subprocess.SubprocessError) as exc:
+    except (OSError, AttributeError, RuntimeError,
+            subprocess.SubprocessError) as exc:
         raise RuntimeError("native C++ POA engine (csrc/host/poa_engine.cpp) "
                            f"cannot load: {exc!r}") from exc
 
@@ -137,30 +145,14 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
                 for i, s in enumerate(seq_lists)]
     if use_device not in (True, "pallas", "xla"):
         raise ValueError(f"unknown device POA engine {use_device!r}")
-    graphs = [_Graph() for _ in seq_lists]
-    host_only = [False] * len(seq_lists)
-    max_rounds = max((len(s) for s in seq_lists), default=0)
-    for r in range(max_rounds):
-        items = []
-        for w, seqs in enumerate(seq_lists):
-            if r >= len(seqs):
-                continue
-            seq = seqs[r]
-            g = graphs[w]
-            if len(seq) == 0 or g.n_nodes() == 0 or host_only[w]:
-                g.add_sequence(seq)
-                continue
-            items.append((w, seq))
-        if items:
-            _device_round(graphs, items, host_only, device, oversize_mesh,
-                          timing)
-    return [(g.consensus(), g.msa()) for g in graphs]
+    return _DeviceBuild(seq_lists, device, threads or HOST_THREADS,
+                        oversize_mesh).run(timing)
 
 
 def _oversize_msa(seqs: list[str], mesh):
     """One giant window's full MSA with every alignment round on the
     sharded wavefront (host C++ graph fusion between rounds)."""
-    g = _Graph()
+    g = NativePoaGraph()
     for seq in seqs:
         if len(seq) == 0 or g.n_nodes() == 0:
             g.add_sequence(seq)
@@ -176,10 +168,12 @@ def _oversize_sharded(g, seq: str, mesh) -> bool:
     n = g.n_nodes()
     n_max = max(N_LADDER[-1], 1 << (max(n, 2) - 1).bit_length())
     packed = g.pack(n_max, MAX_PREDS)
+    _count("window_packs")
     if packed is None:
         return False
     aln, _score = align_sharded_packed(*packed, seq, mesh)
     g.fuse(aln, seq)
+    _count("window_fuses")
     return True
 
 
@@ -191,22 +185,28 @@ def _split_batch(b_pad: int, nb: int, lb: int) -> int:
 
 class _RoundParts:
     """Adds a device round's part times, in seconds, to poa_msa_batch's
-    `timing` dict: pack, D2H, unpack and fuse on the host clock; the H2D
-    copies and K1 as spans on the device's clock (utils/spans), read at
-    one synchronise just before the fetch, which waits for them anyway.
-    Every sub-batch still launches before any is fetched.  Without a dict
-    nothing is marked."""
+    `timing` dict: pack (the round's routing and the chunks' packing), D2H,
+    unpack and fuse on the host clock (unpack as poa_fuse_batch times its
+    first pass); the H2D copies and K1 as spans on the device's clock
+    (utils/spans), read at one synchronise just before the fetch, which
+    waits for them anyway.  Every sub-batch still launches before any is
+    fetched.  Without a dict nothing is marked."""
 
     def __init__(self, timing: dict | None):
         self.timing = timing
         self.spans = Spans()
         self.t = time.perf_counter()
 
-    def host(self, name: str) -> None:
-        """Close host part `name` at now (it began at the last close)."""
+    def host(self, name: str, head: str | None = None,
+             head_s: float = 0.0) -> None:
+        """Close host part `name` at now (it began at the last close); with
+        `head`, its first `head_s` seconds go to part `head` instead."""
         if self.timing is not None:
             now = time.perf_counter()
-            self.timing[name] = self.timing.get(name, 0.0) + now - self.t
+            if head is not None:
+                self.timing[head] = self.timing.get(head, 0.0) + head_s
+            self.timing[name] = (self.timing.get(name, 0.0) + now - self.t
+                                 - head_s)
             self.t = now
 
     def mark(self, dev):
@@ -223,71 +223,164 @@ class _RoundParts:
             self.t = time.perf_counter()
 
 
-def _device_round(graphs, items, host_only, device, oversize_mesh=None,
-                  timing=None):
-    """One round: bucket (window, seq) pairs, device-align, C++ fuse."""
-    parts = _RoundParts(timing)
-    buckets: dict[tuple[int, int], list] = {}
-    for w, seq in items:
-        g = graphs[w]
-        nb = _bucket(g.n_nodes(), N_LADDER)
-        lb = _bucket(len(seq), L_LADDER)
-        packed = None
-        if nb is not None and lb is not None:
-            packed = g.pack(nb, MAX_PREDS)
-        if packed is None:
-            if oversize_mesh is not None and _oversize_sharded(
-                    g, seq, oversize_mesh):
-                continue
-            host_only[w] = True
-            g.add_sequence(seq)
-            continue
-        buckets.setdefault((nb, lb), []).append((w, seq, packed))
-    parts.host("pack")
-    for (nb, lb), group in buckets.items():
-        for off in range(0, len(group), MAX_BATCH):
-            chunk = group[off:off + MAX_BATCH]
-            b_pad = _bucket(len(chunk), B_LADDER) or len(chunk)
-            chars = np.zeros((b_pad, nb), np.uint8)
-            preds = np.full((b_pad, nb, MAX_PREDS), -1, np.int32)
-            sinks = np.zeros((b_pad, nb), bool)
-            nn = np.zeros(b_pad, np.int32)
-            seqs = np.zeros((b_pad, lb), np.uint8)
-            lens = np.zeros(b_pad, np.int32)
-            for bi, (w, seq, (c, p, s, n, nor)) in enumerate(chunk):
-                chars[bi], preds[bi], sinks[bi], nn[bi] = c, p, s, n
-                seqs[bi, :len(seq)] = np.frombuffer(seq.encode(), np.uint8)
-                lens[bi] = len(seq)
-            if len(chunk) < b_pad:       # batch padding: replicate row 0
-                chars[len(chunk):] = chars[0]
-                preds[len(chunk):] = preds[0]
-                sinks[len(chunk):] = sinks[0]
-                nn[len(chunk):] = nn[0]
-                seqs[len(chunk):] = seqs[0]
-                lens[len(chunk):] = lens[0]
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ct.POINTER(ctype))
+
+
+class _ChunkBuffers:
+    """A bucket chunk's host buffers: the kernel's six inputs (`ins`),
+    node_of_rank and K1's three outputs (`outs`), with the C pointers
+    poa_pack_batch writes (`pack_out`) and poa_fuse_batch reads
+    (`fuse_in`).  Pinned when the round runs on a CUDA device, so the
+    copies are asynchronous."""
+
+    def __init__(self, nb: int, lb: int, b_pad: int, pin: bool):
+        def t(shape, dt):
+            return torch.empty(shape, dtype=dt, pin_memory=pin)
+        u8, i32 = torch.uint8, torch.int32
+        self.ins = (t((b_pad, nb), u8), t((b_pad, nb, MAX_PREDS), i32),
+                    t((b_pad, nb), torch.bool), t((b_pad,), i32),
+                    t((b_pad, lb), u8), t((b_pad,), i32))
+        self.outs = (t((b_pad, nb + lb), i32), t((b_pad, nb + lb), i32),
+                     t((b_pad,), i32))
+        self.nor = np.empty((b_pad, nb), np.int32)
+        chars, preds, sinks, nn, seqs, lens = (a.numpy() for a in self.ins)
+        c8, c32 = ct.c_uint8, ct.c_int32
+        self.pack_out = (_ptr(chars, c8), _ptr(preds, c32), _ptr(sinks, c8),
+                         _ptr(nn, c32), _ptr(self.nor, c32), _ptr(seqs, c8),
+                         _ptr(lens, c32))
+        self.fuse_in = tuple(_ptr(a.numpy(), c32) for a in self.outs) \
+            + (_ptr(self.nor, c32),)
+
+
+class _DeviceBuild:
+    """One per-round device MSA build (poa_msa_batch's device mode): round
+    r aligns read r of every window on the device, one C++ call a step
+    over all the round's windows (poa_stat_batch) or a bucket chunk's
+    (poa_pack_batch, then K1, then poa_fuse_batch, threaded over
+    `threads`).  A window's first read, an empty read and a window marked
+    host-only take the host DP (`add_sequence`); a window past the
+    buckets, or with a node of in-degree > 8, goes to the oversize
+    wavefront when a device tuple is set and it can pack, else turns
+    host-only for the rest of the build.
+
+    Chunk buffers are kept by (nb, lb, b_pad) and reused across rounds: a
+    chunk waits for its fetch before it fuses, and so before the next
+    chunk packs, so no buffer is rewritten while a copy from it is in
+    flight."""
+
+    def __init__(self, seq_lists, device, threads: int, oversize_mesh):
+        self.lib = native_lib()
+        self.seq_lists = seq_lists
+        self.graphs = [NativePoaGraph() for _ in seq_lists]
+        self.handles = np.array([g._h for g in self.graphs], np.uintp)
+        self.reads, self.seq_off, self.win_off = flatten_reads(seq_lists)
+        self.seq_off_p = _ptr(self.seq_off, ct.c_int64)
+        self.device, self.threads = device, threads
+        self.oversize_mesh = oversize_mesh
+        mesh = data_mesh() or ()
+        self.pin = any(d.type == "cuda" for d in (device, *mesh))
+        self.bufs: dict[tuple[int, int, int], _ChunkBuffers] = {}
+
+    def run(self, timing=None):
+        """Every round; returns [(consensus, msa_rows)] per window."""
+        read_len = np.diff(self.seq_off)
+        n_reads = np.diff(self.win_off)
+        host_only = np.zeros(len(self.graphs), bool)
+        n_lb = len(L_LADDER)
+        for r in range(int(n_reads.max(initial=0))):
+            parts = _RoundParts(timing)
+            win = np.flatnonzero(n_reads > r)
+            idx = self.win_off[win] + r
+            hw = self.handles[win]
+            nn = np.empty(len(win), np.int32)
+            indeg = np.empty(len(win), np.int32)
+            self.lib.poa_stat_batch(_ptr(hw, ct.c_void_p), len(win),
+                                    _ptr(nn, ct.c_int32),
+                                    _ptr(indeg, ct.c_int32))
+            ln = read_len[idx]
+            host = (ln == 0) | (nn == 0) | host_only[win]
+            nb = np.searchsorted(N_LADDER, nn)     # len(N_LADDER): past it
+            lb = np.searchsorted(L_LADDER, ln)
+            fits = ~host & (nb < len(N_LADDER)) & (lb < n_lb) \
+                & (indeg <= MAX_PREDS)
+            for k in np.flatnonzero(host):
+                self.graphs[win[k]].add_sequence(self.seq_lists[win[k]][r])
+            for k in np.flatnonzero(~host & ~fits):
+                w = win[k]
+                seq = self.seq_lists[w][r]
+                if self.oversize_mesh is None or indeg[k] > MAX_PREDS \
+                        or not _oversize_sharded(self.graphs[w], seq,
+                                                 self.oversize_mesh):
+                    host_only[w] = True
+                    self.graphs[w].add_sequence(seq)
             parts.host("pack")
-            # the batch axis splits over the installed data mesh (windows
-            # independent); the plane budget then applies per device, and
-            # every sub-batch is launched before any is fetched
-            outs = []
-            for dev, arrs in shard_batch((chars, preds, sinks, nn, seqs,
-                                          lens), device=device):
-                b_dev = arrs[0].shape[0]
-                step = _split_batch(b_dev, nb, lb)
-                for s0 in range(0, b_dev, step):
-                    m = parts.mark(dev)
-                    args = to_torch_packed(*(a[s0:s0 + step] for a in arrs),
-                                           dev)
-                    m = parts.device("h2d", m, dev)
-                    outs.append(poa_align.align_batch(*args, lb)[:3])
-                    parts.device("K1", m, dev)
-            parts.settle()
-            an, asp, ke = (np.concatenate([o[k].cpu().numpy() for o in outs])
-                           for k in range(3))
-            parts.host("d2h")
-            for bi, (w, seq, (c, p, s, n, nor)) in enumerate(chunk):
-                nodes, spos = unpack_alignment_arrays(an[bi], asp[bi],
-                                                      ke[bi], nor)
-                parts.host("unpack")
-                graphs[w].fuse_arrays(nodes, spos, seq)
-                parts.host("fuse")
+            dev_k = np.flatnonzero(fits)
+            key = nb[dev_k] * n_lb + lb[dev_k]
+            keys, first = np.unique(key, return_index=True)
+            for kk in keys[np.argsort(first)]:     # buckets in window order
+                sel = dev_k[key == kk]
+                for off in range(0, len(sel), MAX_BATCH):
+                    c = sel[off:off + MAX_BATCH]
+                    self.chunk(hw[c], idx[c], N_LADDER[kk // n_lb],
+                               L_LADDER[kk % n_lb], parts)
+        return [(g.consensus(), g.msa()) for g in self.graphs]
+
+    def chunk(self, handles, idx, nb: int, lb: int, parts) -> None:
+        """One bucket chunk of a round: its graphs and reads packed in C++
+        into the chunk's buffers, copied up, K1, its outputs fetched into
+        the pinned buffers at one synchronise, then unpacked and fused in
+        C++."""
+        n = len(handles)
+        b_pad = _bucket(n, B_LADDER) or n
+        key = (nb, lb, b_pad)
+        if key not in self.bufs:
+            self.bufs[key] = _ChunkBuffers(nb, lb, b_pad, self.pin)
+        b = self.bufs[key]
+        hp = _ptr(handles, ct.c_void_p)
+        idx = np.ascontiguousarray(idx, np.int64)
+        idx_p = _ptr(idx, ct.c_int64)
+        rc = self.lib.poa_pack_batch(hp, n, b_pad, nb, MAX_PREDS, lb,
+                                     self.reads, self.seq_off_p, idx_p,
+                                     *b.pack_out, self.threads)
+        if rc:
+            raise RuntimeError(f"poa_pack_batch: window {rc - 1} of a chunk "
+                               f"does not fit its bucket ({nb}, {lb})")
+        parts.host("pack")
+        # the batch axis splits over the installed data mesh (windows
+        # independent); the plane budget then applies per device, and
+        # every sub-batch is launched before any is fetched
+        res = []
+        for dev, arrs in shard_batch(b.ins, device=self.device):
+            b_dev = arrs[0].shape[0]
+            step = _split_batch(b_dev, nb, lb)
+            for s0 in range(0, b_dev, step):
+                m = parts.mark(dev)
+                args = [a[s0:s0 + step].to(dev, non_blocking=True)
+                        for a in arrs]
+                m = parts.device("h2d", m, dev)
+                res.append(poa_align.align_batch(*args, lb)[:3])
+                parts.device("K1", m, dev)
+        parts.settle()
+        off, done = 0, []
+        for got in res:
+            k = got[0].shape[0]
+            for dst, src in zip(b.outs, got):
+                dst[off:off + k].copy_(src, non_blocking=True)
+            off += k
+            if got[0].is_cuda:
+                done.append(torch.cuda.Event())
+                done[-1].record(torch.cuda.current_stream(got[0].device))
+        for ev in done:
+            ev.synchronize()
+        parts.host("d2h")
+        an, asp, ke, nor = b.fuse_in
+        secs = np.zeros(2, np.float64)
+        rc = self.lib.poa_fuse_batch(hp, n, an, asp, nb + lb, ke, nor, nb,
+                                     self.reads, self.seq_off_p, idx_p,
+                                     self.threads, _ptr(secs, ct.c_double))
+        if rc:
+            raise RuntimeError(f"poa_fuse_batch: window {rc - 1} of a chunk "
+                               "names a rank past its bucket")
+        _count("chunks")
+        parts.host("fuse", "unpack", float(secs[0]))

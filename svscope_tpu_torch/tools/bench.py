@@ -111,7 +111,9 @@ def measure_stages(n_windows, dev, engine_names=ENGINES, log=print) -> dict:
     (tools/probe/stage_probe, best of 1 after its own check run);
     `pallas_round`: with the per-round device aligner, stage A's three
     parts and the device round's parts inside its POA MSA
-    (poa_msa_batch(timing=), ROUND_PARTS) from one run."""
+    (poa_msa_batch(timing=), ROUND_PARTS: routing and `poa_pack_batch`,
+    async H2D and K1 on the device's clock, the pinned D2H, and
+    `poa_fuse_batch`'s unpack and fuse passes) from one run."""
     from ..engine import localgraph as lg
     from .probe import e2e_probe, stage_probe
     wins = make_window_payloads(n_windows, np.random.default_rng(0))

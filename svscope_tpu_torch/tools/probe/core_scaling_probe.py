@@ -10,13 +10,17 @@ process's affinity:
   2. the native C++ POA MSA stage alone
      (native/poa.poa_msa_batch_native) with its pool capped at the same
      count;
-  3. at every core, the glue inside ops/poa_batch._device_round, part by
-     part, over one MSA build of the same windows
+  3. at every core, the glue around K1 in ops/poa_batch's device rounds,
+     part by part, over one MSA build of the same windows
      (`poa_msa_batch(..., timing=)`, the build itself, its MSAs checked):
-     `pack` (the graphs packed and the bucket arrays filled), the H2D
-     copies (`to_torch_packed`) and K1 on the device's clock, the D2H of
-     K1's outputs, `unpack_alignment_arrays` and `fuse_arrays`; beside
-     them the build's wall.
+     `pack` (a round's routing: `poa_stat_batch`, the host-DP reads and
+     the bucketing in numpy; then each chunk's `poa_pack_batch` into its
+     pinned buffers), the async H2D copies and K1 on the device's clock,
+     the D2H into pinned buffers up to the chunk's one synchronise,
+     `unpack` and `fuse` (the two passes of `poa_fuse_batch`, unpack as
+     the entry times it, fuse the rest of the call); beside them the
+     build's wall.  The engine's thread pool takes on the caller's CPU
+     affinity with each job, so every part runs on the cores of the row.
 
 If (1) scales with cores as (2) does, the host's cores bound the default
 path; (3) says which glue to move first.

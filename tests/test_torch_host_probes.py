@@ -10,7 +10,8 @@ import torch
 import localgraph_golden as lgg
 from svscope_tpu_torch.ops.poa_batch import ROUND_PARTS, poa_msa_batch
 from svscope_tpu_torch.tools.probe import (core_scaling_probe, e2e_probe,
-                                           pipeline_probe, stage_probe)
+                                           pipeline_probe, round_probe,
+                                           stage_probe)
 from svscope_tpu_torch.tools.workloads import make_window_payloads
 
 torch.set_num_threads(1)
@@ -81,3 +82,21 @@ def test_e2e_probe_engines_agree_with_the_golden():
         assert row["same_as_first"] == 2 and row["golden"] == 2
         assert row["somatic"] == 2
         assert row["trial_s"] == [row["best_s"]]
+
+
+def test_round_probe_splits_a_build():
+    """round_probe: a device build's entries timed (the build's MSAs ==
+    the host engine's, or it raises), every round part present, the
+    entries within the wall; poa_pack_batch timed at every thread count
+    after the first read and after a later one."""
+    res = round_probe.run(windows=2, heavy_windows=2, heavy_reads=4,
+                          pack_read=2, reps=2, device="cpu", **QUIET)
+    for r in res["builds"].values():
+        assert set(r["entries"]) == {"poa_stat_batch", "poa_pack_batch",
+                                     "poa_fuse_batch"}
+        assert set(r["parts"]) == set(ROUND_PARTS)
+        assert 0 < sum(r["entries"].values()) <= r["wall_s"]
+    assert set(res["pack"]) == {1, 2}
+    for r in res["pack"].values():
+        assert set(r["threads"]) == set(round_probe.THREADS)
+        assert all(0 < lo <= m for m, lo in r["threads"].values())

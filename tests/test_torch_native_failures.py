@@ -8,6 +8,7 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 import svscope_tpu_torch.native.bam as nbam
 import svscope_tpu_torch.native.poa as npoa
@@ -62,6 +63,31 @@ def test_poa_engine_load_failure_raises(monkeypatch):
     monkeypatch.setattr(npoa, "ensure_libpoa", failing_build)
     with pytest.raises(RuntimeError, match="CalledProcessError"):
         poa_batch.poa_msa_batch([["ACGT", "ACGT"]], device="cpu")
+
+
+def test_poa_batch_entry_missing_raises(monkeypatch):
+    """An engine without the device rounds' batch entries (the JAX
+    package's build of native/poa_engine.cpp) fails to load, naming the
+    missing entry; no per-window path stands in."""
+    from svscope_tpu.native import ensure_libpoa as jax_engine
+    monkeypatch.setattr(npoa, "_lib", None)
+    monkeypatch.setattr(npoa, "ensure_libpoa", jax_engine)
+    with pytest.raises(RuntimeError, match="poa_stat_batch"):
+        poa_batch.poa_msa_batch([["ACGT", "ACGT"]], use_device=True,
+                                device="cpu")
+
+
+def test_poa_pack_batch_failure_raises():
+    """A chunk the batch pack cannot take (a read past its length bucket)
+    raises with the window's place; nothing is aligned or fused."""
+    build = poa_batch._DeviceBuild([["ACGT" * 10, "ACGT" * 20]],
+                                   torch.device("cpu"), 2, None)
+    g = build.graphs[0]
+    g.add_sequence("ACGT" * 10)
+    parts = poa_batch._RoundParts(None)
+    with pytest.raises(RuntimeError, match="poa_pack_batch: window 0"):
+        build.chunk(build.handles, np.ones(1, np.int64), 128, 64, parts)
+    assert g.n_seqs() == 1
 
 
 @pytest.mark.parametrize("start,end", [(950, 1150), (2900, 3200),
