@@ -23,7 +23,9 @@ K4/K5 on cuda, their plain torch versions on cpu).  `--oversize-sharded`
 aligns windows past the 2048-node / 2048 bp buckets through the column-
 sharded wavefront (ops/poa_sharded) over every local CUDA device (one card:
 a one-device tuple, as the JAX CLI's mesh over one chip), or over the CPU
-with `--device cpu`.
+with `--device cpu`.  `localGraph --trace-spans PATH` records the
+engine's spans (utils/spans.TRACE) and writes them with the POA engines'
+COUNTS as a Chrome-trace JSON file when the run ends.
 """
 from __future__ import annotations
 
@@ -54,12 +56,16 @@ def _oversize_devices(device: str) -> tuple:
 
 def cmd_local_graph(args):
     from .engine.localgraph import run_local_graph
-    from .ops.poa_batch import set_default_oversize_mesh
+    from .ops import poa_batch, poa_fused
+    from .utils.spans import TRACE
     device_poa = _device_poa_arg(args)
     records = [l for l in open(args.windowBed).read().splitlines()
                if l.strip() and not l.startswith("chrom\t")]
     if args.oversize_sharded:
-        set_default_oversize_mesh(_oversize_devices(args.device))
+        poa_batch.set_default_oversize_mesh(_oversize_devices(args.device))
+    trace_path = getattr(args, "trace_spans", None)
+    if trace_path:
+        TRACE.enable()
     try:
         return run_local_graph(
             records, args.Reference, args.Tumorbam.split(","),
@@ -69,7 +75,12 @@ def cmd_local_graph(args):
             em_dtype=args.device_dtype, device_poa=device_poa,
             threads=int(args.thread or 8), device=args.device)
     finally:
-        set_default_oversize_mesh(None)
+        poa_batch.set_default_oversize_mesh(None)
+        if trace_path:
+            TRACE.disable()
+            TRACE.write_chrome_trace(trace_path, {
+                "poa_batch": dict(poa_batch.COUNTS),
+                "poa_fused": dict(poa_fused.COUNTS)})
 
 
 def _load_tables(args):
@@ -325,6 +336,10 @@ def main(argv=None):
     p = sub.add_parser("localGraph")
     _common_bam_args(p)
     p.add_argument("-C", "--Continue", action="store_true", default=False)
+    p.add_argument("--trace-spans", metavar="PATH", default=None,
+                   help="record the engine's spans and write them, with "
+                        "the POA engines' counters, to PATH as a "
+                        "Chrome-trace JSON file")
     p.set_defaults(func=cmd_local_graph)
 
     p = sub.add_parser("localGraph_npz")

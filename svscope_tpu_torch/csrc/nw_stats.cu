@@ -66,7 +66,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names a
+// kernel by its demangled name, which would begin "(anonymous
+// namespace)::" and so read as no name where the name is cut at its first
+// parenthesis.
+namespace nw_stats {
 
 constexpr unsigned kFull = 0xffffffffu;
 // (M, A) of a cell packed in one int: M << 16 | A.  Exact while
@@ -210,7 +214,9 @@ int launch_rows(const void* a, const void* b, const void* la, const void* lb,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
+}  // namespace nw_stats
+
+using namespace nw_stats;
 
 // Plain C entry point (bound with ctypes).  Launches on `stream`, does not
 // synchronise, allocates nothing; returns cudaGetLastError() of the launch,

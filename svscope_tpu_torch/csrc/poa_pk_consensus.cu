@@ -50,7 +50,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names a
+// kernel by its demangled name, which would begin "(anonymous
+// namespace)::" and so read as no name where the name is cut at its first
+// parenthesis.
+namespace pk_consensus {
 
 constexpr int kMaxPreds = 8;
 constexpr int kBig = 1 << 30;
@@ -394,7 +398,9 @@ __global__ void __launch_bounds__(kThreads) pk_consensus_kernel(WalkArgs a) {
   SPLIT_END
 }
 
-}  // namespace
+}  // namespace pk_consensus
+
+using namespace pk_consensus;
 
 // K7's dynamic shared memory in bytes (ops/poa_fused_kernel.
 // consensus_smem_bytes mirrors it).

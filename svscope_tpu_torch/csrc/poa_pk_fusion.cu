@@ -48,7 +48,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names a
+// kernel by its demangled name, which would begin "(anonymous
+// namespace)::" and so read as no name where the name is cut at its first
+// parenthesis.
+namespace pk_fusion {
 
 constexpr int kMaxPreds = 8;
 constexpr int kAlpha = 5;
@@ -488,7 +492,9 @@ __global__ void __launch_bounds__(kSeqWarps * 32)
   }
 }
 
-}  // namespace
+}  // namespace pk_fusion
+
+using namespace pk_fusion;
 
 // K4's dynamic shared memory in bytes (ops/poa_fused_kernel.fusion_smem_bytes
 // mirrors it).

@@ -60,7 +60,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-namespace {
+// A named namespace, not an anonymous one: a profiler's trace names a
+// kernel by its demangled name, which would begin "(anonymous
+// namespace)::" and so read as no name where the name is cut at its first
+// parenthesis.
+namespace pk_prep {
 
 constexpr int kMaxPreds = 8;
 constexpr int kIdBits = 16;                 // node ids below 2^16
@@ -535,7 +539,9 @@ __global__ void __launch_bounds__(kThreads) pk_prep_kernel(PrepArgs a) {
   SPLIT_END
 }
 
-}  // namespace
+}  // namespace pk_prep
+
+using namespace pk_prep;
 
 // K6's dynamic shared memory in bytes (ops/poa_fused_kernel.prep_smem_bytes
 // mirrors it).

@@ -35,6 +35,7 @@ from ..models.mixture import em_cluster_batch_dispatch
 from ..ops.poa_batch import poa_msa_batch
 from ..utils import seq as sq
 from ..utils.device import resolve_device
+from ..utils.spans import TRACE
 from .datamaker import WindowData, data_maker, data_maker2
 from .decision import call_margin, decision, dup_rescue, find_non_same_site
 
@@ -190,8 +191,9 @@ def _complete_chunk(entries, ready, em_fetch, t_label, readcutoff,
                     device_poa, threads, device="cpu"):
     """Phase B fetch + phase C emission for one dispatched chunk."""
     em_results = em_fetch()
-    emitted = _emit_chunk(ready, em_results, t_label, readcutoff, device_poa,
-                          threads, device)
+    with TRACE.span("localgraph.emit"):
+        emitted = _emit_chunk(ready, em_results, t_label, readcutoff,
+                              device_poa, threads, device)
     records = []
     for win, state in entries:
         if state is None:
@@ -220,41 +222,67 @@ def process_window_batch(wins: list[WindowData], t_label: str = "tumor",
 
     Large batches run as a two-stage pipeline: a worker thread computes
     phase A of sub-chunk k+1 while the main thread runs EM + consensus
-    emission of sub-chunk k."""
+    emission of sub-chunk k.
+
+    The call is the recorder's span `localgraph.batch` (its call_id is
+    the call's); inside it `localgraph.stage_a` (attribute `chunk`, the
+    sub-chunk; on the worker thread when pipelined),
+    `localgraph.stage_a_wait` (the caller waiting for it),
+    `localgraph.em_dispatch` and `localgraph.complete` (the EM's fetch and
+    `localgraph.emit`)."""
     dev = resolve_device(device)
     device_poa = resolve_device_poa(device_poa, dev)
+    with TRACE.call("localgraph.batch", windows=len(wins)):
+        return _process_window_batch(wins, t_label, readcutoff, hcutoff,
+                                     scutoff, em_dtype, device_poa, threads,
+                                     dev, uniforms)
+
+
+def _process_window_batch(wins, t_label, readcutoff, hcutoff, scutoff,
+                          em_dtype, device_poa, threads, dev, uniforms):
+    def dispatch(ready):
+        with TRACE.span("localgraph.em_dispatch"):
+            return _dispatch_em(ready, em_dtype, dev, uniforms)
+
+    def complete(entries, ready, fetch):
+        with TRACE.span("localgraph.complete"):
+            return _complete_chunk(entries, ready, fetch, t_label,
+                                   readcutoff, device_poa, threads, dev)
+
+    def stage_a(ci, c):
+        with TRACE.span("localgraph.stage_a", chunk=ci):
+            return _stage_a(c, t_label, hcutoff, scutoff, device_poa,
+                            threads, dev)
+
     if len(wins) <= PIPELINE_CHUNK:
-        entries, ready = _stage_a(wins, t_label, hcutoff, scutoff,
-                                  device_poa, threads, dev)
-        fetch = _dispatch_em(ready, em_dtype, dev, uniforms)
-        return _complete_chunk(entries, ready, fetch, t_label, readcutoff,
-                               device_poa, threads, dev)
+        entries, ready = stage_a(0, wins)
+        return complete(entries, ready, dispatch(ready))
     from concurrent.futures import ThreadPoolExecutor
     chunks = [wins[off:off + PIPELINE_CHUNK]
               for off in range(0, len(wins), PIPELINE_CHUNK)]
     records: list[list] = []
 
-    def stage_a(c):
+    def worker_stage_a(ci, c):
         # the worker thread launches kernels too: pin it to the same card
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        return _stage_a(c, t_label, hcutoff, scutoff, device_poa, threads,
-                        dev)
+        return stage_a(ci, c)
 
     with ThreadPoolExecutor(1) as prefetch:
-        pending = [prefetch.submit(stage_a, c) for c in chunks[:2]]
+        pending = [prefetch.submit(TRACE.carry(worker_stage_a), ci, c)
+                   for ci, c in enumerate(chunks[:2])]
         inflight = None   # (entries, ready, em_fetch) of chunk k
         for ci in range(len(chunks)):
-            entries, ready = pending.pop(0).result()
+            with TRACE.span("localgraph.stage_a_wait"):
+                entries, ready = pending.pop(0).result()
             if ci + 2 < len(chunks):
-                pending.append(prefetch.submit(stage_a, chunks[ci + 2]))
-            fetch = _dispatch_em(ready, em_dtype, dev, uniforms)
+                pending.append(prefetch.submit(
+                    TRACE.carry(worker_stage_a), ci + 2, chunks[ci + 2]))
+            fetch = dispatch(ready)
             if inflight is not None:
-                records.extend(_complete_chunk(*inflight, t_label, readcutoff,
-                                               device_poa, threads, dev))
+                records.extend(complete(*inflight))
             inflight = (entries, ready, fetch)
-        records.extend(_complete_chunk(*inflight, t_label, readcutoff,
-                                       device_poa, threads, dev))
+        records.extend(complete(*inflight))
     return records
 
 

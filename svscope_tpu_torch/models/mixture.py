@@ -38,6 +38,7 @@ import torch
 
 from ..parallel.dataparallel import cross_sum, data_mesh, shard_batch
 from ..utils.device import resolve_device, resolve_dtype
+from ..utils.spans import TRACE
 
 ALPHA = 5          # alphabet size {A,T,C,G,-}
 MAX_K = 9          # reference max cluster count (src/ReadsCluster.py:221)
@@ -471,7 +472,10 @@ def _raw_em_dispatch(feats: list[np.ndarray], max_c: int, seed: int,
                      labels_only: bool, device, uniforms):
     """Host prep + device EM over shape buckets.  Returns a fetch() closure
     producing raw per-window tuples (bics (MAX_K,), per-K output — int8
-    labels (MAX_K, N) or gamma (MAX_K, N, MAX_K) —, n_k)."""
+    labels (MAX_K, N) or gamma (MAX_K, N, MAX_K) —, n_k).  A shape chunk's
+    prep is the recorder's span `mixture.prep`, with the children
+    `mixture.identity` (one-hot matmul or pairwise_identity),
+    `mixture.ward` and `mixture.launch` (the draws and the EM's launch)."""
     results: list = [None] * len(feats)
     mesh = data_mesh()
     mp_idx = _mp_route(feats, mesh) if mesh is not None else set()
@@ -495,65 +499,75 @@ def _raw_em_dispatch(feats: list[np.ndarray], max_c: int, seed: int,
     pending: list = []
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
     for (n_pad, nf_pad), idxs in chunks:
-        b_pad = _bucket(len(idxs), ladder=BATCH_LADDER)
-        codes = np.full((b_pad, n_pad, nf_pad), PAD_CODE, np.int8)
-        hard_b = np.zeros((b_pad, MAX_K, n_pad), np.int8)
-        nks = np.ones(b_pad, np.int32)
-        ns = np.zeros(b_pad, np.int32)
-        nfs = np.zeros(b_pad, np.int32)
-        zps = np.zeros(b_pad, np.float64)
-        for bi, i in enumerate(idxs):
-            x = np.asarray(feats[i])
-            ns[bi], nfs[bi] = x.shape
-            codes[bi, :x.shape[0], :x.shape[1]] = x
-        nb = len(idxs)
-        # batched pairwise identity + zero-param counts via a one-hot
-        # batched matmul (PAD_CODE is outside 0..4, so pads contribute 0;
-        # integer counts are exact in f32)
-        sims = zps_b = None
-        if nb * n_pad * n_pad * nf_pad * ALPHA <= (1 << 29):
-            c = codes[:nb]
-            oh = (c[..., None] == np.arange(ALPHA, dtype=c.dtype))
-            oh_f = oh.reshape(nb, n_pad, nf_pad * ALPHA).astype(np.float32)
-            sims = np.matmul(oh_f, oh_f.transpose(0, 2, 1))
-            zps_b = oh.sum(axis=1)
-        sim_list = []
-        for bi, i in enumerate(idxs):
-            x = np.asarray(feats[i])
-            n, nf = x.shape
-            nks[bi] = max(min(max_c + 1, n) - 1, 1)
-            if sims is not None:
-                sim = (sims[bi, :n, :n] / max(nf, 1)).astype(np.float64)
-                np.fill_diagonal(sim, 1.0)
-                zps[bi] = float((zps_b[bi, :nf] == 0).sum())
-            else:
-                sim = pairwise_identity(x)
-                zps[bi] = zero_param_count(x)
-            sim_list.append(sim)
-        cuts = ward_cut_many(sim_list, MAX_K)
-        for bi, i in enumerate(idxs):
-            n = sim_list[bi].shape[0]
-            kmin = min(int(nks[bi]), MAX_K)
-            hard_b[bi, :kmin, :n] = cuts[bi][:kmin]
-        if len(idxs) < b_pad:                # batch-axis padding
-            codes[len(idxs):] = codes[0]
-            hard_b[len(idxs):] = hard_b[0]
-            nks[len(idxs):] = nks[0]
-            ns[len(idxs):] = ns[0]
-            nfs[len(idxs):] = nfs[0]
-            zps[len(idxs):] = zps[0]
-        u = _draws(uniforms, seed, attempt, nf_pad, nsteps, dtype, device)
-        kernel = _em_folded_batch_light if labels_only else _em_folded_batch
-        # with a data mesh installed (parallel/dataparallel) the window axis
-        # is split over its devices: every chunk is launched before any is
-        # fetched, and windows are independent
-        outs = []
-        for dev, arrs in shard_batch((codes, hard_b, nks, ns,
-                                      nfs.astype(np_dtype),
-                                      zps.astype(np_dtype)), device=device):
-            outs.append(kernel(*(torch.from_numpy(a).to(dev) for a in arrs),
-                               u.to(dev), nsteps))
-        pending.append((idxs, nks, outs))
+        with TRACE.span("mixture.prep"):
+            b_pad = _bucket(len(idxs), ladder=BATCH_LADDER)
+            codes = np.full((b_pad, n_pad, nf_pad), PAD_CODE, np.int8)
+            hard_b = np.zeros((b_pad, MAX_K, n_pad), np.int8)
+            nks = np.ones(b_pad, np.int32)
+            ns = np.zeros(b_pad, np.int32)
+            nfs = np.zeros(b_pad, np.int32)
+            zps = np.zeros(b_pad, np.float64)
+            for bi, i in enumerate(idxs):
+                x = np.asarray(feats[i])
+                ns[bi], nfs[bi] = x.shape
+                codes[bi, :x.shape[0], :x.shape[1]] = x
+            nb = len(idxs)
+            with TRACE.span("mixture.identity"):
+                # batched pairwise identity + zero-param counts via a
+                # one-hot batched matmul (PAD_CODE is outside 0..4, so pads
+                # contribute 0; integer counts are exact in f32)
+                sims = zps_b = None
+                if nb * n_pad * n_pad * nf_pad * ALPHA <= (1 << 29):
+                    c = codes[:nb]
+                    oh = (c[..., None] == np.arange(ALPHA, dtype=c.dtype))
+                    oh_f = oh.reshape(nb, n_pad, nf_pad * ALPHA).astype(
+                        np.float32)
+                    sims = np.matmul(oh_f, oh_f.transpose(0, 2, 1))
+                    zps_b = oh.sum(axis=1)
+                sim_list = []
+                for bi, i in enumerate(idxs):
+                    x = np.asarray(feats[i])
+                    n, nf = x.shape
+                    nks[bi] = max(min(max_c + 1, n) - 1, 1)
+                    if sims is not None:
+                        sim = (sims[bi, :n, :n] / max(nf, 1)).astype(
+                            np.float64)
+                        np.fill_diagonal(sim, 1.0)
+                        zps[bi] = float((zps_b[bi, :nf] == 0).sum())
+                    else:
+                        sim = pairwise_identity(x)
+                        zps[bi] = zero_param_count(x)
+                    sim_list.append(sim)
+            with TRACE.span("mixture.ward"):
+                cuts = ward_cut_many(sim_list, MAX_K)
+            for bi, i in enumerate(idxs):
+                n = sim_list[bi].shape[0]
+                kmin = min(int(nks[bi]), MAX_K)
+                hard_b[bi, :kmin, :n] = cuts[bi][:kmin]
+            if len(idxs) < b_pad:                # batch-axis padding
+                codes[len(idxs):] = codes[0]
+                hard_b[len(idxs):] = hard_b[0]
+                nks[len(idxs):] = nks[0]
+                ns[len(idxs):] = ns[0]
+                nfs[len(idxs):] = nfs[0]
+                zps[len(idxs):] = zps[0]
+            with TRACE.span("mixture.launch"):
+                u = _draws(uniforms, seed, attempt, nf_pad, nsteps, dtype,
+                           device)
+                kernel = (_em_folded_batch_light if labels_only
+                          else _em_folded_batch)
+                # with a data mesh installed (parallel/dataparallel) the
+                # window axis is split over its devices: every chunk is
+                # launched before any is fetched, and windows are
+                # independent
+                outs = []
+                for dev, arrs in shard_batch(
+                        (codes, hard_b, nks, ns, nfs.astype(np_dtype),
+                         zps.astype(np_dtype)), device=device):
+                    outs.append(kernel(
+                        *(torch.from_numpy(a).to(dev) for a in arrs),
+                        u.to(dev), nsteps))
+            pending.append((idxs, nks, outs))
 
     def fetch():
         for idxs, nks, outs in pending:
@@ -580,7 +594,7 @@ def em_cluster_batch_dispatch(feats: list[np.ndarray], max_c: int = MAX_K,
     shape bucket, returning a fetch() closure that waits for the results,
     applies the reference's NaN-BIC retry policy (up to MAX_EM_ATTEMPTS
     runs per K with fresh draws, src/ReadsCluster.py:247-252) and finishes
-    selection.
+    selection; the fetch is the recorder's span `mixture.fetch`.
 
     uniforms: callable (seed, attempt, nf_pad, nsteps, dtype, device) ->
     (nsteps + 1, 45, nf_pad, 5) tensor of the M-step's random draws;
@@ -592,6 +606,10 @@ def em_cluster_batch_dispatch(feats: list[np.ndarray], max_c: int = MAX_K,
                                  labels_only, device, uniforms)
 
     def fetch():
+        with TRACE.span("mixture.fetch"):
+            return _fetch()
+
+    def _fetch():
         raws = raw_fetch()
         need = [i for i, (b, _o, nk) in enumerate(raws)
                 if np.isnan(b[:nk]).any()]

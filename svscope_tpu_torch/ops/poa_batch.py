@@ -29,7 +29,6 @@ import ctypes as ct
 import os
 import subprocess
 import threading
-import time
 
 import numpy as np
 import torch
@@ -42,7 +41,7 @@ from . import poa_align
 from .poa_fused import fused_msa_batch
 from .poa_device import MAX_PREDS
 from ..utils.device import resolve_device
-from ..utils.spans import Spans
+from ..utils.spans import TRACE, Spans
 
 N_LADDER = (128, 256, 512, 1024, 2048)
 L_LADDER = (64, 128, 256, 512, 1024, 2048)
@@ -59,9 +58,10 @@ ROUND_PARTS = ("pack", "h2d", "K1", "d2h", "unpack", "fuse")
 
 # per-window Python pack and fuse calls (the oversize wavefront's windows,
 # the one route that still packs and fuses a window at a time; 0 on a
-# build whose windows all fit the buckets), and the bucket chunks packed
-# and fused by the C++ batch entries
-COUNTS = {"window_packs": 0, "window_fuses": 0, "chunks": 0}
+# build whose windows all fit the buckets), the bucket chunks packed and
+# fused by the C++ batch entries, and the bytes the chunks' copies to the
+# device were handed
+COUNTS = {"window_packs": 0, "window_fuses": 0, "chunks": 0, "h2d_bytes": 0}
 _count_lock = threading.Lock()
 
 _DEFAULT_OVERSIZE = None   # device tuple of the oversize wavefront
@@ -73,9 +73,9 @@ def reset_counts() -> None:
             COUNTS[k] = 0
 
 
-def _count(key: str) -> None:
+def _count(key: str, n: int = 1) -> None:
     with _count_lock:
-        COUNTS[key] += 1
+        COUNTS[key] += n
 
 
 def set_default_oversize_mesh(mesh) -> None:
@@ -121,19 +121,32 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
     (default: the one `set_default_oversize_mesh` set, else none).
     timing: a dict; in per-round device mode every round adds the seconds
     of its parts (ROUND_PARTS, see _RoundParts) to it.
-    Returns [(consensus, msa_rows)] per window."""
+    Returns [(consensus, msa_rows)] per window; the call is the
+    recorder's span `poa.msa` (attribute `engine`: host, pallas or
+    fused)."""
     device = resolve_device(device)
     _require_native()
     if oversize_mesh is None:
         oversize_mesh = _DEFAULT_OVERSIZE
-    if not use_device or use_device == "host" or use_device == "fused":
+    if not use_device or use_device == "host":
+        engine = "host"
+    elif use_device == "fused":
+        engine = "fused"
+    elif use_device in (True, "pallas", "xla"):
+        engine = "pallas"
+    else:
+        raise ValueError(f"unknown device POA engine {use_device!r}")
+    with TRACE.span("poa.msa", engine=engine):
+        if engine == "pallas":
+            return _DeviceBuild(seq_lists, device, threads or HOST_THREADS,
+                                oversize_mesh).run(timing)
         # giant windows go to the wavefront in host and fused mode too
         big = set()
         if oversize_mesh is not None:
             big = {i for i, s in enumerate(seq_lists)
                    if s and max(map(len, s)) > L_LADDER[-1]}
         small = [s for i, s in enumerate(seq_lists) if i not in big]
-        if use_device == "fused":
+        if engine == "fused":
             res = fused_msa_batch(small, device=device) if small else []
         elif len(small) > 1:
             res = poa_msa_batch_native(small,
@@ -143,10 +156,6 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
         res = iter(res)
         return [_oversize_msa(s, oversize_mesh) if i in big else next(res)
                 for i, s in enumerate(seq_lists)]
-    if use_device not in (True, "pallas", "xla"):
-        raise ValueError(f"unknown device POA engine {use_device!r}")
-    return _DeviceBuild(seq_lists, device, threads or HOST_THREADS,
-                        oversize_mesh).run(timing)
 
 
 def _oversize_msa(seqs: list[str], mesh):
@@ -183,31 +192,39 @@ def _split_batch(b_pad: int, nb: int, lb: int) -> int:
     return max(1, min(b_pad, PLANE_BUDGET_BYTES // per))
 
 
+# the host part of poa_msa_batch(timing=) each span of a device round adds to
+_PART_OF = {"poa.round.route": "pack", "poa.round.host_dp": "pack",
+            "poa.chunk.pack": "pack", "poa.chunk.wait": "d2h",
+            "poa.chunk.fuse": "fuse"}
+
+
 class _RoundParts:
-    """Adds a device round's part times, in seconds, to poa_msa_batch's
-    `timing` dict: pack (the round's routing and the chunks' packing), D2H,
-    unpack and fuse on the host clock (unpack as poa_fuse_batch times its
-    first pass); the H2D copies and K1 as spans on the device's clock
-    (utils/spans), read at one synchronise just before the fetch, which
-    waits for them anyway.  Every sub-batch still launches before any is
-    fetched.  Without a dict nothing is marked."""
+    """Adds a device build's part times, in seconds, to poa_msa_batch's
+    `timing` dict: the host parts from the recorder's spans (`_PART_OF`:
+    pack is the rounds' routing and host DP and the chunks' packing, d2h
+    the fetch, fuse the span `poa.chunk.fuse` less the `unpack` seconds
+    poa_fuse_batch returns for its first pass); the H2D copies and K1 as
+    spans on the device's clock (utils/spans.Spans), read at one
+    synchronise just before the fetch, which waits for them anyway.
+    Every sub-batch still launches before any is fetched.  Without a dict
+    nothing is marked, and a span is the recorder's alone."""
 
     def __init__(self, timing: dict | None):
         self.timing = timing
         self.spans = Spans()
-        self.t = time.perf_counter()
 
-    def host(self, name: str, head: str | None = None,
-             head_s: float = 0.0) -> None:
-        """Close host part `name` at now (it began at the last close); with
-        `head`, its first `head_s` seconds go to part `head` instead."""
-        if self.timing is not None:
-            now = time.perf_counter()
-            if head is not None:
-                self.timing[head] = self.timing.get(head, 0.0) + head_s
-            self.timing[name] = (self.timing.get(name, 0.0) + now - self.t
-                                 - head_s)
-            self.t = now
+    def span(self, name: str):
+        """The recorder's span `name`, timed into its part with a dict."""
+        if self.timing is None:
+            return TRACE.span(name)
+        return TRACE.timed(name, self._add)
+
+    def _add(self, span) -> None:
+        unpack = span.attrs.get("unpack", 0.0)
+        if "unpack" in span.attrs:
+            self.timing["unpack"] = self.timing.get("unpack", 0.0) + unpack
+        part = _PART_OF[span.name]
+        self.timing[part] = self.timing.get(part, 0.0) + span.seconds - unpack
 
     def mark(self, dev):
         return None if self.timing is None else self.spans.mark(dev)
@@ -220,7 +237,6 @@ class _RoundParts:
     def settle(self) -> None:
         if self.timing is not None:
             self.spans.read(self.timing)
-            self.t = time.perf_counter()
 
 
 def _ptr(a: np.ndarray, ctype):
@@ -283,104 +299,116 @@ class _DeviceBuild:
         self.bufs: dict[tuple[int, int, int], _ChunkBuffers] = {}
 
     def run(self, timing=None):
-        """Every round; returns [(consensus, msa_rows)] per window."""
+        """Every round; returns [(consensus, msa_rows)] per window.  Spans:
+        per round `poa.round.route` and `poa.round.host_dp`, per chunk
+        those of `chunk`, then `poa.extract`."""
+        parts = _RoundParts(timing)
         read_len = np.diff(self.seq_off)
         n_reads = np.diff(self.win_off)
         host_only = np.zeros(len(self.graphs), bool)
         n_lb = len(L_LADDER)
         for r in range(int(n_reads.max(initial=0))):
-            parts = _RoundParts(timing)
-            win = np.flatnonzero(n_reads > r)
-            idx = self.win_off[win] + r
-            hw = self.handles[win]
-            nn = np.empty(len(win), np.int32)
-            indeg = np.empty(len(win), np.int32)
-            self.lib.poa_stat_batch(_ptr(hw, ct.c_void_p), len(win),
-                                    _ptr(nn, ct.c_int32),
-                                    _ptr(indeg, ct.c_int32))
-            ln = read_len[idx]
-            host = (ln == 0) | (nn == 0) | host_only[win]
-            nb = np.searchsorted(N_LADDER, nn)     # len(N_LADDER): past it
-            lb = np.searchsorted(L_LADDER, ln)
-            fits = ~host & (nb < len(N_LADDER)) & (lb < n_lb) \
-                & (indeg <= MAX_PREDS)
-            for k in np.flatnonzero(host):
-                self.graphs[win[k]].add_sequence(self.seq_lists[win[k]][r])
-            for k in np.flatnonzero(~host & ~fits):
-                w = win[k]
-                seq = self.seq_lists[w][r]
-                if self.oversize_mesh is None or indeg[k] > MAX_PREDS \
-                        or not _oversize_sharded(self.graphs[w], seq,
-                                                 self.oversize_mesh):
-                    host_only[w] = True
-                    self.graphs[w].add_sequence(seq)
-            parts.host("pack")
-            dev_k = np.flatnonzero(fits)
-            key = nb[dev_k] * n_lb + lb[dev_k]
-            keys, first = np.unique(key, return_index=True)
+            with parts.span("poa.round.route"):
+                win = np.flatnonzero(n_reads > r)
+                idx = self.win_off[win] + r
+                hw = self.handles[win]
+                nn = np.empty(len(win), np.int32)
+                indeg = np.empty(len(win), np.int32)
+                self.lib.poa_stat_batch(_ptr(hw, ct.c_void_p), len(win),
+                                        _ptr(nn, ct.c_int32),
+                                        _ptr(indeg, ct.c_int32))
+                ln = read_len[idx]
+                host = (ln == 0) | (nn == 0) | host_only[win]
+                nb = np.searchsorted(N_LADDER, nn)  # len(N_LADDER): past it
+                lb = np.searchsorted(L_LADDER, ln)
+                fits = ~host & (nb < len(N_LADDER)) & (lb < n_lb) \
+                    & (indeg <= MAX_PREDS)
+                dev_k = np.flatnonzero(fits)
+                key = nb[dev_k] * n_lb + lb[dev_k]
+                keys, first = np.unique(key, return_index=True)
+            with parts.span("poa.round.host_dp"):
+                for k in np.flatnonzero(host):
+                    self.graphs[win[k]].add_sequence(
+                        self.seq_lists[win[k]][r])
+                for k in np.flatnonzero(~host & ~fits):
+                    w = win[k]
+                    seq = self.seq_lists[w][r]
+                    if self.oversize_mesh is None or indeg[k] > MAX_PREDS \
+                            or not _oversize_sharded(self.graphs[w], seq,
+                                                     self.oversize_mesh):
+                        host_only[w] = True
+                        self.graphs[w].add_sequence(seq)
             for kk in keys[np.argsort(first)]:     # buckets in window order
                 sel = dev_k[key == kk]
                 for off in range(0, len(sel), MAX_BATCH):
                     c = sel[off:off + MAX_BATCH]
                     self.chunk(hw[c], idx[c], N_LADDER[kk // n_lb],
                                L_LADDER[kk % n_lb], parts)
-        return [(g.consensus(), g.msa()) for g in self.graphs]
+        with TRACE.span("poa.extract"):
+            return [(g.consensus(), g.msa()) for g in self.graphs]
 
     def chunk(self, handles, idx, nb: int, lb: int, parts) -> None:
         """One bucket chunk of a round: its graphs and reads packed in C++
-        into the chunk's buffers, copied up, K1, its outputs fetched into
-        the pinned buffers at one synchronise, then unpacked and fused in
-        C++."""
-        n = len(handles)
-        b_pad = _bucket(n, B_LADDER) or n
-        key = (nb, lb, b_pad)
-        if key not in self.bufs:
-            self.bufs[key] = _ChunkBuffers(nb, lb, b_pad, self.pin)
-        b = self.bufs[key]
-        hp = _ptr(handles, ct.c_void_p)
-        idx = np.ascontiguousarray(idx, np.int64)
-        idx_p = _ptr(idx, ct.c_int64)
-        rc = self.lib.poa_pack_batch(hp, n, b_pad, nb, MAX_PREDS, lb,
-                                     self.reads, self.seq_off_p, idx_p,
-                                     *b.pack_out, self.threads)
-        if rc:
-            raise RuntimeError(f"poa_pack_batch: window {rc - 1} of a chunk "
-                               f"does not fit its bucket ({nb}, {lb})")
-        parts.host("pack")
+        into the chunk's buffers (span `poa.chunk.pack`), copied up and K1
+        enqueued (`poa.chunk.launch`; the bytes copied counted in
+        COUNTS["h2d_bytes"]), its outputs fetched into the pinned buffers
+        at one synchronise (`poa.chunk.wait`), then unpacked and fused in
+        C++ (`poa.chunk.fuse`, with the unpack's seconds as `unpack`)."""
+        with parts.span("poa.chunk.pack"):
+            n = len(handles)
+            b_pad = _bucket(n, B_LADDER) or n
+            key = (nb, lb, b_pad)
+            if key not in self.bufs:
+                self.bufs[key] = _ChunkBuffers(nb, lb, b_pad, self.pin)
+            b = self.bufs[key]
+            hp = _ptr(handles, ct.c_void_p)
+            idx = np.ascontiguousarray(idx, np.int64)
+            idx_p = _ptr(idx, ct.c_int64)
+            rc = self.lib.poa_pack_batch(hp, n, b_pad, nb, MAX_PREDS, lb,
+                                         self.reads, self.seq_off_p, idx_p,
+                                         *b.pack_out, self.threads)
+            if rc:
+                raise RuntimeError(f"poa_pack_batch: window {rc - 1} of a "
+                                   f"chunk does not fit its bucket ({nb}, "
+                                   f"{lb})")
         # the batch axis splits over the installed data mesh (windows
         # independent); the plane budget then applies per device, and
         # every sub-batch is launched before any is fetched
-        res = []
-        for dev, arrs in shard_batch(b.ins, device=self.device):
-            b_dev = arrs[0].shape[0]
-            step = _split_batch(b_dev, nb, lb)
-            for s0 in range(0, b_dev, step):
-                m = parts.mark(dev)
-                args = [a[s0:s0 + step].to(dev, non_blocking=True)
-                        for a in arrs]
-                m = parts.device("h2d", m, dev)
-                res.append(poa_align.align_batch(*args, lb)[:3])
-                parts.device("K1", m, dev)
+        with TRACE.span("poa.chunk.launch"):
+            res = []
+            for dev, arrs in shard_batch(b.ins, device=self.device):
+                b_dev = arrs[0].shape[0]
+                step = _split_batch(b_dev, nb, lb)
+                for s0 in range(0, b_dev, step):
+                    m = parts.mark(dev)
+                    src = [a[s0:s0 + step] for a in arrs]
+                    _count("h2d_bytes", sum(a.nbytes for a in src))
+                    args = [a.to(dev, non_blocking=True) for a in src]
+                    m = parts.device("h2d", m, dev)
+                    res.append(poa_align.align_batch(*args, lb)[:3])
+                    parts.device("K1", m, dev)
         parts.settle()
-        off, done = 0, []
-        for got in res:
-            k = got[0].shape[0]
-            for dst, src in zip(b.outs, got):
-                dst[off:off + k].copy_(src, non_blocking=True)
-            off += k
-            if got[0].is_cuda:
-                done.append(torch.cuda.Event())
-                done[-1].record(torch.cuda.current_stream(got[0].device))
-        for ev in done:
-            ev.synchronize()
-        parts.host("d2h")
-        an, asp, ke, nor = b.fuse_in
-        secs = np.zeros(2, np.float64)
-        rc = self.lib.poa_fuse_batch(hp, n, an, asp, nb + lb, ke, nor, nb,
-                                     self.reads, self.seq_off_p, idx_p,
-                                     self.threads, _ptr(secs, ct.c_double))
-        if rc:
-            raise RuntimeError(f"poa_fuse_batch: window {rc - 1} of a chunk "
-                               "names a rank past its bucket")
+        with parts.span("poa.chunk.wait"):
+            off, done = 0, []
+            for got in res:
+                k = got[0].shape[0]
+                for dst, src in zip(b.outs, got):
+                    dst[off:off + k].copy_(src, non_blocking=True)
+                off += k
+                if got[0].is_cuda:
+                    done.append(torch.cuda.Event())
+                    done[-1].record(torch.cuda.current_stream(got[0].device))
+            for ev in done:
+                ev.synchronize()
+        with parts.span("poa.chunk.fuse") as span:
+            an, asp, ke, nor = b.fuse_in
+            secs = np.zeros(2, np.float64)
+            rc = self.lib.poa_fuse_batch(hp, n, an, asp, nb + lb, ke, nor,
+                                         nb, self.reads, self.seq_off_p,
+                                         idx_p, self.threads,
+                                         _ptr(secs, ct.c_double))
+            if rc:
+                raise RuntimeError(f"poa_fuse_batch: window {rc - 1} of a "
+                                   "chunk names a rank past its bucket")
+            span.set(unpack=float(secs[0]))
         _count("chunks")
-        parts.host("fuse", "unpack", float(secs[0]))

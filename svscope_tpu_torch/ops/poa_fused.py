@@ -44,9 +44,9 @@ probe knobs, the 64-window chunk cap and the 8-window batch padding.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
-import time
 
 import numpy as np
 import torch
@@ -56,6 +56,7 @@ from .poa_device import MAX_PREDS
 from .poa_fused_kernel import (ALPHA5, GraphState, align_tb, consensus_cuda,
                                fusion, round_prep_cuda, toposort_cuda)
 from ..utils.device import resolve_device
+from ..utils.spans import NO_SPAN, TRACE
 
 log = logging.getLogger("svscope_tpu_torch.poa_fused")
 
@@ -73,8 +74,11 @@ BUDGET_BYTES = 4 << 30
 KAHN_CHECK_EVERY = 8     # Kahn steps between two host convergence checks
 WALK_CHECK_EVERY = 64    # consensus walk steps between two checks
 
+# `h2d_bytes`: the bytes of the builds' uploads (the reads and their
+# lengths)
 COUNTS = {"fallbacks": 0, "windows": 0, "chunks": 0, "rounds": 0,
-          "kahn_steps": 0, "host_syncs": 0, "consensus_steps": 0}
+          "kahn_steps": 0, "host_syncs": 0, "consensus_steps": 0,
+          "h2d_bytes": 0}
 _count_lock = threading.Lock()
 
 
@@ -90,22 +94,25 @@ def _count(key: str, n: int = 1) -> None:
 
 
 class _Phases:
-    """Seconds per build phase, taken only when a `timing` dict is given
-    (it synchronises the device at every phase boundary)."""
+    """Seconds per build phase, taken only when a `timing` dict is given:
+    each phase is the recorder's span `fused.phase` (attribute `phase`),
+    closed after a synchronise of the device, and adds its seconds to
+    timing[phase]."""
 
     def __init__(self, timing, device):
         self.timing = timing
         self.cuda = torch.device(device).type == "cuda"
-        self.t = time.perf_counter()
 
-    def mark(self, name: str) -> None:
-        if self.timing is None:
-            return
-        if self.cuda:
-            torch.cuda.synchronize()
-        now = time.perf_counter()
-        self.timing[name] = self.timing.get(name, 0.0) + now - self.t
-        self.t = now
+    def phase(self, name: str):
+        return NO_SPAN if self.timing is None else self._timed(name)
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        with TRACE.timed("fused.phase", phase=name) as span:
+            yield
+            if self.cuda:
+                torch.cuda.synchronize()
+        self.timing[name] = self.timing.get(name, 0.0) + span.seconds
 
 
 # ------------------------------------------------------------ toposort ----
@@ -373,30 +380,33 @@ def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cuda",
     dev = resolve_device(device)
     B, R, l_max = seqs.shape
     ph = _Phases(timing, dev)
-    seqs_d = torch.from_numpy(np.ascontiguousarray(
-        np.transpose(seqs, (1, 0, 2)), np.int32)).to(dev)
-    lens_d = torch.from_numpy(np.ascontiguousarray(
-        np.transpose(lens), np.int32)).to(dev)
-    st = GraphState.empty(B, ncap, dev)
-    path = torch.full((R, B, l_max), -1, dtype=torch.int32, device=dev)
+    with ph.phase("upload"):
+        seqs_h = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(seqs, (1, 0, 2)), np.int32))
+        lens_h = torch.from_numpy(np.ascontiguousarray(
+            np.transpose(lens), np.int32))
+        _count("h2d_bytes", seqs_h.nbytes + lens_h.nbytes)
+        seqs_d, lens_d = seqs_h.to(dev), lens_h.to(dev)
+        st = GraphState.empty(B, ncap, dev)
+        path = torch.full((R, B, l_max), -1, dtype=torch.int32, device=dev)
     rounds = int(np.max(n_seqs)) if B else 0
-    ph.mark("upload")
     for r in range(rounds):
         seq = seqs_d[r]
-        ops, _cyclic = pk_round_prep(st, seq, lens_d[r], update_ovf=True)
-        ph.mark("prep")
+        with ph.phase("prep"):
+            ops, _cyclic = pk_round_prep(st, seq, lens_d[r],
+                                         update_ovf=True)
         *k3_ops, gminr = ops
-        an, asx, ke = align_tb(*k3_ops)
-        ph.mark("align")
+        with ph.phase("align"):
+            an, asx, ke = align_tb(*k3_ops)
         if round_hook is not None:
             round_hook(r, ops, st, an, asx, ke)
-        fusion(an, asx, ke, gminr, seq, st, out=path[r])
-        ph.mark("fusion")
+        with ph.phase("fusion"):
+            fusion(an, asx, ke, gminr, seq, st, out=path[r])
     _count("rounds", rounds)
-    order, _rank, cyclic = toposort(st.pn, st.gm, st.nn)
-    overflow = (st.ovf > 0) | cyclic
-    walk = consensus_walk(st.ch, st.pn, st.pw, st.pt, st.nn, order)
-    ph.mark("consensus")
+    with ph.phase("consensus"):
+        order, _rank, cyclic = toposort(st.pn, st.gm, st.nn)
+        overflow = (st.ovf > 0) | cyclic
+        walk = consensus_walk(st.ch, st.pn, st.pw, st.pt, st.nn, order)
     out = {"ch": st.ch, "gm": st.gm, "nn": st.nn,
            "path": path.permute(1, 0, 2), "order": order,
            "back_buf": walk[0], "back_start": walk[1], "fwd_buf": walk[2],
@@ -406,10 +416,8 @@ def build_batch_pk(seqs, lens, n_seqs, *, ncap: int, device="cuda",
 
 def fetch_build(out: dict, timing=None, device="cuda") -> dict:
     """build_batch_pk's tensors copied to numpy (phase "download")."""
-    ph = _Phases(timing, device)
-    out = {k: v.cpu().numpy() for k, v in out.items()}
-    ph.mark("download")
-    return out
+    with _Phases(timing, device).phase("download"):
+        return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def emit_window(ch, gm, nn, path, order, back_buf, back_start, fwd_buf,
@@ -515,48 +523,59 @@ def fused_msa_batch(seq_lists: list[list[str]], device="cuda",
     """spoa-equivalent poa(seqs, 1) over many windows with the whole MSA
     build on `device` (K3 and K4/K5 on a CUDA device, their plain versions
     on the CPU).  Returns [(consensus, msa_rows)] per window, identical to
-    ops.poa.poa and the host C++ engine."""
+    ops.poa.poa and the host C++ engine.  The recorder's spans:
+    `fused.plan` (plan_buckets), per chunk `fused.arrays` (chunk_arrays),
+    `fused.enqueue` (the builds enqueued), `fused.fetch`, `fused.emit` (the
+    chunk's emit_window loop), then `fused.fallback` (the host engine's
+    windows)."""
     from ..native.poa import poa_msa_batch_native, poa_native
     device = resolve_device(device)
-    out, groups, fallback, encoded = plan_buckets(seq_lists)
+    with TRACE.span("fused.plan"):
+        out, groups, fallback, encoded = plan_buckets(seq_lists)
     for (rb, lb, nb), idxs in groups.items():
         ncap = nb + 1
         bcap = max(1, BUDGET_BYTES // window_bytes(ncap, lb, rb))
         for off in range(0, len(idxs), bcap):
             chunk = idxs[off:off + bcap]
-            seqs_a, lens_a, nseq_a = chunk_arrays(chunk, encoded, rb, lb)
+            with TRACE.span("fused.arrays"):
+                seqs_a, lens_a, nseq_a = chunk_arrays(chunk, encoded, rb, lb)
             # the window axis splits over the installed data mesh (a chunk
             # it does not divide runs whole on its first device); every
             # part's build is enqueued before any is fetched, and a build
             # on the card reads nothing back, so the parts' devices run
             # together
-            parts = [(dev, build_batch_pk(*arrs, ncap=ncap, device=dev,
-                                          timing=timing, fetch=False))
-                     for dev, arrs in shard_batch((seqs_a, lens_a, nseq_a),
-                                                  device=device)]
-            parts = [fetch_build(p, timing, dev) for dev, p in parts]
-            res = {k: np.concatenate([p[k] for p in parts])
-                   for k in parts[0]}
+            with TRACE.span("fused.enqueue"):
+                parts = [(dev, build_batch_pk(*arrs, ncap=ncap, device=dev,
+                                              timing=timing, fetch=False))
+                         for dev, arrs in shard_batch(
+                             (seqs_a, lens_a, nseq_a), device=device)]
+            with TRACE.span("fused.fetch"):
+                parts = [fetch_build(p, timing, dev) for dev, p in parts]
+                res = {k: np.concatenate([p[k] for p in parts])
+                       for k in parts[0]}
             _count("chunks")
             _count("windows", len(chunk))
-            for bi, wi in enumerate(chunk):
-                if res["overflow"][bi]:
-                    fallback.append(wi)
-                    continue
-                out[wi] = emit_window(
-                    res["ch"][bi], res["gm"][bi], res["nn"][bi],
-                    res["path"][bi], res["order"][bi], res["back_buf"][bi],
-                    res["back_start"][bi], res["fwd_buf"][bi],
-                    res["fwd_cnt"][bi], len(seq_lists[wi]))
+            with TRACE.span("fused.emit"):
+                for bi, wi in enumerate(chunk):
+                    if res["overflow"][bi]:
+                        fallback.append(wi)
+                        continue
+                    out[wi] = emit_window(
+                        res["ch"][bi], res["gm"][bi], res["nn"][bi],
+                        res["path"][bi], res["order"][bi],
+                        res["back_buf"][bi], res["back_start"][bi],
+                        res["fwd_buf"][bi], res["fwd_cnt"][bi],
+                        len(seq_lists[wi]))
     if fallback:
         _count("fallbacks", len(fallback))
         log.info("fused POA: %d/%d windows go to the host C++ engine "
                  "(overflow, non-ACGTN base or past the buckets)",
                  len(fallback), len(seq_lists))
-        if len(fallback) > 1:
-            for i, r in zip(fallback, poa_msa_batch_native(
-                    [seq_lists[i] for i in fallback])):
-                out[i] = r
-        else:
-            out[fallback[0]] = poa_native(seq_lists[fallback[0]])
+        with TRACE.span("fused.fallback"):
+            if len(fallback) > 1:
+                for i, r in zip(fallback, poa_msa_batch_native(
+                        [seq_lists[i] for i in fallback])):
+                    out[i] = r
+            else:
+                out[fallback[0]] = poa_native(seq_lists[fallback[0]])
     return out
