@@ -1076,4 +1076,102 @@ int poa_fuse_batch(void* const* handles, int64_t n, const int32_t* aln_nodes,
   return 0;
 }
 
+// The fused engine's emit (ops/poa_fused.emit_window) over a fetched chunk
+// of n window states, each window on one thread of the pool.  Window w's
+// arrays: ch, gm, order, back_buf, fwd_buf (ncap each), path (r_max rows
+// of l_max, -1 for no node; row r of window w at path + w * path_ws +
+// r * path_rs, so the fetch's (R, B, l_max) layout is read in place), nn,
+// back_start, fwd_cnt, n_seqs (one each).
+// Its MSA columns are the distinct gm values along order[:nn], ranked by
+// first occurrence; read r < n_seqs gets a row of '-' with its path's
+// bases at their nodes' columns; the consensus is the bases of
+// back_buf[back_start:] then fwd_buf[:fwd_cnt] (nn == 0: no columns and
+// an empty consensus).  Written at out + off[w]: the consensus, then the
+// n_seqs rows back to back, with its length in cons_len[w] and the
+// column count in ncol[w]; a window with skip[w] set is neither read nor
+// written.  Returns 0, or w+1 for the first window whose state names an
+// index outside its arrays or whose text passes off[w+1] - off[w] bytes
+// (its outputs then unspecified).
+int pk_emit_batch(const int32_t* ch, const int32_t* gm, const int32_t* nn,
+                  const int32_t* path, const int32_t* order,
+                  const int32_t* back_buf, const int32_t* back_start,
+                  const int32_t* fwd_buf, const int32_t* fwd_cnt,
+                  const int32_t* n_seqs, const uint8_t* skip, int64_t n,
+                  int32_t ncap, int32_t r_max, int32_t l_max,
+                  int64_t path_ws, int64_t path_rs,
+                  uint8_t* out, const int64_t* off, int64_t* cons_len,
+                  int64_t* ncol, int32_t n_threads) {
+  static const uint8_t kDecode[5] = {'A', 'C', 'G', 'T', 'N'};
+  std::vector<uint8_t> bad((size_t)n, 0);
+  parallel_for(n, n_threads, [&](int64_t w) {
+    if (skip[w]) return;
+    const int64_t nw = nn[w], ns = n_seqs[w];
+    if (nw < 0 || nw > ncap || ns < 0 || ns > r_max) {
+      bad[w] = 1;
+      return;
+    }
+    cons_len[w] = ncol[w] = 0;
+    if (nw == 0) return;
+    const int32_t* chw = ch + w * ncap;
+    const int32_t* gmw = gm + w * ncap;
+    auto valid = [&](int64_t v) {
+      return v >= 0 && v < ncap && gmw[v] >= 0 && gmw[v] < ncap &&
+             chw[v] >= 0 && chw[v] < 5;
+    };
+    thread_local std::vector<int32_t> col;
+    col.assign(ncap, -1);
+    int64_t nc = 0;
+    const int32_t* ord = order + w * ncap;
+    for (int64_t k = 0; k < nw; k++) {
+      if (!valid(ord[k])) {
+        bad[w] = 1;
+        return;
+      }
+      int32_t& c = col[gmw[ord[k]]];
+      if (c < 0) c = (int32_t)nc++;
+    }
+    const int64_t b0 = back_start[w], nf = fwd_cnt[w];
+    if (b0 < 0 || b0 > ncap || nf < 0 || nf > ncap ||
+        (ncap - b0) + nf + ns * nc > off[w + 1] - off[w]) {
+      bad[w] = 1;
+      return;
+    }
+    uint8_t* dst = out + off[w];
+    int64_t pos = 0;
+    auto put = [&](const int32_t* nodes, int64_t m) {
+      for (int64_t k = 0; k < m; k++) {
+        if (!valid(nodes[k])) return false;
+        dst[pos++] = kDecode[chw[nodes[k]]];
+      }
+      return true;
+    };
+    if (!put(back_buf + w * ncap + b0, ncap - b0) ||
+        !put(fwd_buf + w * ncap, nf)) {
+      bad[w] = 1;
+      return;
+    }
+    cons_len[w] = pos;
+    ncol[w] = nc;
+    const int32_t* pw = path + w * path_ws;
+    for (int64_t r = 0; r < ns; r++, pw += path_rs, pos += nc) {
+      uint8_t* row = dst + pos;
+      memset(row, '-', nc);
+      for (int64_t k = 0; k < l_max; k++) {
+        const int32_t v = pw[k];
+        if (v < 0) continue;
+        if (!valid(v)) {
+          bad[w] = 1;
+          return;
+        }
+        // a column that order[:nn] never reaches is column 0, as
+        // emit_window's zero-filled col_of_gm has it
+        row[std::max(col[gmw[v]], 0)] = kDecode[chw[v]];
+      }
+    }
+  });
+  for (int64_t i = 0; i < n; i++)
+    if (bad[i]) return (int)(i + 1);
+  return 0;
+}
+
 }  // extern "C"

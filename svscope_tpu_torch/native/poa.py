@@ -5,12 +5,14 @@ consensus surface with identical semantics; `poa_native(sequences)` is the
 drop-in spoa-equivalent entry point.  The device rounds
 (ops/poa_batch.py) route, pack and fuse these graphs a round or a bucket
 chunk at a time through the engine's batch entries (poa_stat_batch,
-poa_pack_batch, poa_fuse_batch), so the per-read bookkeeping runs at C++
-speed on the engine's thread pool.
+poa_pack_batch, poa_fuse_batch), and the fused engine (ops/poa_fused.py)
+emits a fetched chunk's MSA rows and consensus through pk_emit_batch, so the
+per-read bookkeeping runs at C++ speed on the engine's thread pool.
 """
 from __future__ import annotations
 
 import ctypes as ct
+import os
 import threading
 
 import numpy as np
@@ -19,6 +21,8 @@ from . import ensure_libpoa
 
 _lib = None
 _lib_lock = threading.Lock()
+# threads of the engine's batch entries unless a caller gives its own
+HOST_THREADS = min(8, os.cpu_count() or 1)
 
 
 def declare_msa_batch(l):
@@ -81,6 +85,10 @@ def lib():
         l.poa_fuse_batch.argtypes = [pv, i64, p32, p32, i64, p32, p32, i32,
                                      ct.c_char_p, p64, p64, i32,
                                      ct.POINTER(ct.c_double)]
+        l.pk_emit_batch.restype = ct.c_int
+        l.pk_emit_batch.argtypes = [p32] * 10 + [p8, i64, i32, i32, i32,
+                                                  i64, i64, p8, p64, p64,
+                                                  p64, i32]
         _lib = declare_msa_batch(l)
     return _lib
 
@@ -235,3 +243,66 @@ def poa_msa_batch_native(seq_lists: list[list[str]], threads: int = 8):
         lines = txt.split("\n")
         results.append((lines[0], lines[1:-1]))
     return results
+
+
+# build_batch_pk's fetched arrays that pk_emit_batch reads, in its order
+EMIT_FIELDS = ("ch", "gm", "nn", "path", "order", "back_buf", "back_start",
+               "fwd_buf", "fwd_cnt")
+
+
+def _rows_in_place(path):
+    """build_batch_pk's fetched paths (B, R, l_max) as pk_emit_batch reads
+    them: int32 rows of l_max, the window and read axes at any
+    non-negative strides.  The fetch keeps the build's read-major layout,
+    so the chunk's largest array is read where it lies, not copied."""
+    if (path.dtype == np.int32 and path.strides[2] == 4
+            and all(st >= 0 and st % 4 == 0 for st in path.strides[:2])):
+        return path
+    return np.ascontiguousarray(path, np.int32)
+
+
+def pk_emit_batch(state: dict, n_seqs, skip, threads: int = HOST_THREADS):
+    """[(consensus, msa_rows)] of every window of a fetched fused-build
+    chunk (ops/poa_fused.build_batch_pk's numpy arrays), None where `skip`
+    is set, by one threaded call of the engine's pk_emit_batch: each window
+    as ops/poa_fused.emit_window gives it, its first n_seqs[w] reads.
+    Raises RuntimeError for a state that names an index outside its
+    arrays."""
+    arrs = [np.ascontiguousarray(state[k], np.int32) if k != "path"
+            else _rows_in_place(state[k]) for k in EMIT_FIELDS]
+    ch, gm, nn, path, order, back, _, fwd, _ = arrs
+    n, ncap = ch.shape
+    if any(a.shape != ch.shape for a in (gm, order, back, fwd)):
+        raise ValueError("pk_emit_batch: per-node arrays of unequal shape")
+    _, r_max, l_max = path.shape
+    path_ws, path_rs = (st // 4 for st in path.strides[:2])
+    ns = np.ascontiguousarray(n_seqs, np.int32)
+    skip = np.ascontiguousarray(skip, np.uint8)
+    # every column holds a node and the consensus is a path: a window's
+    # consensus and each of its rows take at most nn bytes
+    off = np.zeros(n + 1, np.int64)
+    np.cumsum(nn.astype(np.int64) * (ns.astype(np.int64) + 1) * (skip == 0),
+              out=off[1:])
+    out = np.empty(int(off[-1]), np.uint8)
+    cons_len = np.zeros(n, np.int64)
+    ncol = np.zeros(n, np.int64)
+    rc = lib().pk_emit_batch(*map(_i32p, arrs), _i32p(ns), _u8p(skip), n,
+                             ncap, r_max, l_max, path_ws, path_rs,
+                             _u8p(out), _i64p(off), _i64p(cons_len),
+                             _i64p(ncol), int(threads))
+    if rc:
+        raise RuntimeError(f"pk_emit_batch: window {rc - 1} of the chunk "
+                           "names a node outside its state")
+    res = []
+    text = memoryview(out)
+    for w in range(n):
+        if skip[w]:
+            res.append(None)
+            continue
+        cl, nc, a = int(cons_len[w]), int(ncol[w]), int(off[w])
+        win = str(text[a:a + cl + int(ns[w]) * nc], "ascii")
+        # rows sliced at their known offsets: no scan for separators
+        rows = ([win[i:i + nc] for i in range(cl, len(win), nc)] if nc
+                else [""] * int(ns[w]))
+        res.append((win[:cl], rows))
+    return res

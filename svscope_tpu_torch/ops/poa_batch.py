@@ -26,14 +26,13 @@ each per-round batch is split over its devices.
 from __future__ import annotations
 
 import ctypes as ct
-import os
 import subprocess
 import threading
 
 import numpy as np
 import torch
 
-from ..native.poa import NativePoaGraph, flatten_reads
+from ..native.poa import HOST_THREADS, NativePoaGraph, flatten_reads
 from ..native.poa import lib as native_lib
 from ..native.poa import poa_msa_batch_native, poa_native
 from ..parallel.dataparallel import data_mesh, shard_batch
@@ -47,7 +46,6 @@ N_LADDER = (128, 256, 512, 1024, 2048)
 L_LADDER = (64, 128, 256, 512, 1024, 2048)
 B_LADDER = (8, 32, 128, 256)
 MAX_BATCH = 256
-HOST_THREADS = min(8, os.cpu_count() or 1)
 # Device-memory budget for one kernel call's scratch planes (H int32 +
 # directions int8).  A bucket whose padded batch would exceed it is split
 # into sub-batches; the largest bucket (B=256, N=L=2048, ~5.4 GB) runs as
@@ -146,8 +144,11 @@ def poa_msa_batch(seq_lists: list[list[str]], use_device=False,
             big = {i for i, s in enumerate(seq_lists)
                    if s and max(map(len, s)) > L_LADDER[-1]}
         small = [s for i, s in enumerate(seq_lists) if i not in big]
-        if engine == "fused":
-            res = fused_msa_batch(small, device=device) if small else []
+        if not small:
+            res = []
+        elif engine == "fused":
+            res = fused_msa_batch(small, device=device,
+                                  threads=threads or HOST_THREADS)
         elif len(small) > 1:
             res = poa_msa_batch_native(small,
                                        threads=threads or HOST_THREADS)

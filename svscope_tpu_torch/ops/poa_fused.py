@@ -18,14 +18,16 @@ The host issues the round loop up to the batch's largest read count (from
 numpy), three launches a round; state stays on the device and nothing is
 read back until the build is done.  After the last round: one more
 `toposort` (K6's order mode), the heaviest-bundle `consensus_walk` (K7),
-one copy to the host, and `emit_window` (numpy) turns each window's state
-into (consensus, msa_rows).  On CPU tensors each kernel's plain version
-runs instead (`toposort_reference`, `pk_round_prep_reference`,
-`consensus_walk_reference` here; those of K3 and K4/K5 in
-poa_fused_kernel): the Kahn loop and the walks as torch ops driven from
-the host, which count their steps and host checks in COUNTS.  Results are
-identical to ops/poa.poa and the C++ engine (the same scoring, the same
-group-Kahn order, the same fusion rules and consensus tie-breaks).
+one copy to the host, and one threaded call of the C++ engine's
+`pk_emit_batch` (native/poa.py) turns every window's state of the chunk
+into (consensus, msa_rows), as `emit_window` (numpy) does for one.  On CPU
+tensors each kernel's plain version runs instead (`toposort_reference`,
+`pk_round_prep_reference`, `consensus_walk_reference` here; those of K3
+and K4/K5 in poa_fused_kernel): the Kahn loop and the walks as torch ops
+driven from the host, which count their steps and host checks in COUNTS.
+Results are identical to ops/poa.poa and the C++ engine (the same scoring,
+the same group-Kahn order, the same fusion rules and consensus
+tie-breaks).
 
 Windows the device build cannot hold go to the host C++ engine, as in the
 JAX package: a graph that outgrows its node bucket, gets a node with more
@@ -51,6 +53,8 @@ import threading
 import numpy as np
 import torch
 
+from ..native.poa import (HOST_THREADS, pk_emit_batch, poa_msa_batch_native,
+                          poa_native)
 from ..parallel.dataparallel import shard_batch
 from .poa_device import MAX_PREDS
 from .poa_fused_kernel import (ALPHA5, GraphState, align_tb, consensus_cuda,
@@ -75,10 +79,10 @@ KAHN_CHECK_EVERY = 8     # Kahn steps between two host convergence checks
 WALK_CHECK_EVERY = 64    # consensus walk steps between two checks
 
 # `h2d_bytes`: the bytes of the builds' uploads (the reads and their
-# lengths)
+# lengths); `emit_windows`: windows emitted by the engine's pk_emit_batch
 COUNTS = {"fallbacks": 0, "windows": 0, "chunks": 0, "rounds": 0,
           "kahn_steps": 0, "host_syncs": 0, "consensus_steps": 0,
-          "h2d_bytes": 0}
+          "h2d_bytes": 0, "emit_windows": 0}
 _count_lock = threading.Lock()
 
 
@@ -423,7 +427,8 @@ def fetch_build(out: dict, timing=None, device="cuda") -> dict:
 def emit_window(ch, gm, nn, path, order, back_buf, back_start, fwd_buf,
                 fwd_cnt, n_seqs: int):
     """(consensus, msa_rows) from one fetched window state (numpy;
-    `_emit_window` of the JAX package)."""
+    `_emit_window` of the JAX package): the plain version that the C++
+    engine's pk_emit_batch, which fused_msa_batch calls, is held to."""
     n = int(nn)
     if n == 0:
         return "", ["" for _ in range(n_seqs)]
@@ -519,16 +524,15 @@ def chunk_arrays(chunk: list[int], encoded, r_max: int, l_max: int):
 
 
 def fused_msa_batch(seq_lists: list[list[str]], device="cuda",
-                    timing=None):
+                    timing=None, threads: int = HOST_THREADS):
     """spoa-equivalent poa(seqs, 1) over many windows with the whole MSA
     build on `device` (K3 and K4/K5 on a CUDA device, their plain versions
     on the CPU).  Returns [(consensus, msa_rows)] per window, identical to
     ops.poa.poa and the host C++ engine.  The recorder's spans:
     `fused.plan` (plan_buckets), per chunk `fused.arrays` (chunk_arrays),
     `fused.enqueue` (the builds enqueued), `fused.fetch`, `fused.emit` (the
-    chunk's emit_window loop), then `fused.fallback` (the host engine's
-    windows)."""
-    from ..native.poa import poa_msa_batch_native, poa_native
+    chunk's pk_emit_batch call over `threads`; attribute `windows`: those
+    it emits), then `fused.fallback` (the host engine's windows)."""
     device = resolve_device(device)
     with TRACE.span("fused.plan"):
         out, groups, fallback, encoded = plan_buckets(seq_lists)
@@ -555,17 +559,16 @@ def fused_msa_batch(seq_lists: list[list[str]], device="cuda",
                        for k in parts[0]}
             _count("chunks")
             _count("windows", len(chunk))
-            with TRACE.span("fused.emit"):
-                for bi, wi in enumerate(chunk):
-                    if res["overflow"][bi]:
+            skip = res["overflow"]
+            n_emit = len(chunk) - int(np.count_nonzero(skip))
+            with TRACE.span("fused.emit", windows=n_emit):
+                for wi, got in zip(chunk, pk_emit_batch(res, nseq_a, skip,
+                                                        threads)):
+                    if got is None:
                         fallback.append(wi)
-                        continue
-                    out[wi] = emit_window(
-                        res["ch"][bi], res["gm"][bi], res["nn"][bi],
-                        res["path"][bi], res["order"][bi],
-                        res["back_buf"][bi], res["back_start"][bi],
-                        res["fwd_buf"][bi], res["fwd_cnt"][bi],
-                        len(seq_lists[wi]))
+                    else:
+                        out[wi] = got
+            _count("emit_windows", n_emit)
     if fallback:
         _count("fallbacks", len(fallback))
         log.info("fused POA: %d/%d windows go to the host C++ engine "

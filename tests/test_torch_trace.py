@@ -180,6 +180,7 @@ def test_engine_spans(device_poa, trace_on, monkeypatch):
                                           device_poa=device_poa)
     assert TRACE.records() == []
     TRACE.enable()
+    poa_fused.reset_counts()
     on = localgraph.process_window_batch(wins, device="cpu",
                                          device_poa=device_poa)
     assert repr(on) == repr(off)
@@ -211,6 +212,11 @@ def test_engine_spans(device_poa, trace_on, monkeypatch):
         for b in builds:
             kids = [(r[T0], r[T1]) for r in recs if r[PARENT] == b[SID]]
             assert covered(kids) >= 0.9 * (b[T1] - b[T0])
+    else:
+        emits = [r[ATTRS] for r in recs if r[NAME] == "fused.emit"]
+        assert all(set(a) == {"windows"} for a in emits)
+        assert sum(a["windows"] for a in emits) == \
+            poa_fused.COUNTS["emit_windows"] > 0
 
 
 def test_fused_fallback_span(trace_on):
@@ -221,6 +227,8 @@ def test_fused_fallback_span(trace_on):
         [["ACGTAC", "ACGRAC", "ACTAC"]], device="cpu")[0]
     names = [r[NAME] for r in TRACE.records()]
     assert "fused.fallback" in names and "fused.emit" in names
+    assert [r[ATTRS] for r in TRACE.records()
+            if r[NAME] == "fused.emit"] == [{"windows": 1}]
 
 
 def test_timing_splits_come_from_the_spans(trace_on):
