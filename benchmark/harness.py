@@ -1,6 +1,7 @@
 """One run of one cell: set-up (the program's libraries, the batch pool
-from the seed, one warm-up call), the measured window of whole
-process_window_batch calls back to back, then the checks and the metrics.
+from the seed, one warm-up call on each batch of the pool), the measured
+window of whole process_window_batch calls back to back, then the checks
+and the metrics.
 
 The window is a closed loop with one caller, as the CLI's localGraph
 stage is: each call is a batch of prepared windows, the next always
@@ -14,7 +15,7 @@ import os
 import sys
 import time
 
-from . import check, generator, manifest
+from . import check, generator, host, manifest
 from .spans import EmCapture, Recorder
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "svscope_tpu")
@@ -102,11 +103,26 @@ def check_trace(run, before: list[int], log) -> bool:
     return ok
 
 
-def cuda_tracer():
-    """torch.profiler's tracer of the card."""
+def cuda_tracer(cards=(0,)):
+    """torch.profiler's tracer of the cards."""
     from .devtrace import DeviceTrace
-    return DeviceTrace(os.path.join(CACHE, "trace", "trace.json"))
+    return DeviceTrace(os.path.join(CACHE, "trace", "trace.json"), cards)
 
+
+def mesh_of(cfg, dev):
+    """The configuration's data mesh (`data_parallel` cards; CUDA's first
+    ones, or `dev` repeated off the card), or None where it asks for one
+    card: the port's own device tuple, as run_local_graph builds it."""
+    n = int(cfg.get("data_parallel", 1))
+    if n <= 1:
+        return None
+    from svscope_tpu_torch.parallel.dataparallel import make_dp_mesh
+    mesh = (make_dp_mesh(n_devices=n) if dev.type == "cuda"
+            else make_dp_mesh(devices=(dev,) * n))
+    if len(mesh) != n:
+        raise RuntimeError(f"data_parallel {n} asks for {n} cards, "
+                           f"{len(mesh)} found")
+    return mesh
 
 class GcClock:
     """Collections of the cyclic garbage collector and their seconds,
@@ -160,14 +176,25 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     devtrace.Reduced; by default torch.profiler's on the card)."""
     t_start = time.perf_counter() if t_start is None else t_start
     man = man or manifest.load_manifest()
-    cell = manifest.cell(man, cell_name)
-    cfg = manifest.config(man, cell["config"])
+    cell, cfg = manifest.cell_config(man, cell_name)
     params = params or manifest.traffic(cell["traffic"])
     limits = limits or manifest.limits(cell_name)
     import torch
     from svscope_tpu_torch.engine import localgraph
-    t_import = time.perf_counter()
+    from svscope_tpu_torch.parallel.dataparallel import data_mesh_installed
     dev = torch.device(device)
+    # one card installs no mesh: data_mesh_installed(None) keeps it clear
+    mesh = mesh_of(cfg, dev)
+    if mesh is not None:
+        dev = mesh[0]
+    cards = (sorted({d.index or 0 for d in mesh or (dev,)})
+             if dev.type == "cuda" else [])
+    log("host: " + host.facts() + f", torch threads {torch.get_num_threads()}")
+    if dev.type == "cuda":
+        log("host: " + host.bind(cards, cfg["threads"]))
+    log(f"host: native pool of up to {cfg['threads']} threads a job (the "
+        f"caller and {cfg['threads'] - 1} helpers)")
+    t_import = time.perf_counter()
     r = Run(cfg)
     pool = generator.make_pool(params, seed)
     prog_pool = program_windows(pool)
@@ -210,42 +237,49 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     gclock = GcClock()
     try:
-        call(prog_pool[0])                       # warm-up, part of set-up
-        sync()
-        t_warm = time.perf_counter()
-        _reset_counts()
-        em.results.clear()
-        if dev.type == "cuda":
-            torch.cuda.reset_peak_memory_stats()
-        if tracer is None and trace and dev.type == "cuda":
-            tracer = cuda_tracer
-        tr = tracer() if trace and tracer is not None else None
-        if tr is not None:
-            tr.start()
-        launched = launches(cfg)
-        gc.callbacks.append(gclock)
-        rss0, cpu0 = rss_mb(), cpu_clock()
-        setup_s = time.perf_counter() - t_start
-        window()
-        gc.callbacks.remove(gclock)
-        rss1, cpu1 = rss_mb(), cpu_clock()
-        if tr is not None:
-            r.trace = tr.stop()
-            if not r.trace.complete:
-                # the profiler lost the window's device side: trace a
-                # second window, which alone feeds the per-layer metrics
-                log(f"trace incomplete {r.trace.raw}: tracing a second "
-                    f"window of {seconds} s")
-                r.rec.clear()
-                r.first = len(r.calls)
-                _reset_counts()
-                tr = tracer()
+        with data_mesh_installed(mesh):
+            # warm-up, part of set-up: every batch the window will send, so
+            # the program's buffers and caches have met each batch's shapes
+            for batch in prog_pool:
+                call(batch)
+            sync()
+            t_warm = time.perf_counter()
+            _reset_counts()
+            em.results.clear()
+            for c in cards:
+                torch.cuda.reset_peak_memory_stats(c)
+            if tracer is None and trace and dev.type == "cuda":
+                tracer = lambda: cuda_tracer(cards)
+            tr = tracer() if trace and tracer is not None else None
+            if tr is not None:
                 tr.start()
-                launched = launches(cfg)
-                window()
+            launched = launches(cfg)
+            gc.callbacks.append(gclock)
+            rss0, cpu0 = rss_mb(), cpu_clock()
+            usage = host.Usage()
+            usage.start()
+            setup_s = time.perf_counter() - t_start
+            window()
+            gc.callbacks.remove(gclock)
+            rss1, cpu1 = rss_mb(), cpu_clock()
+            usage_lines = usage.lines()
+            if tr is not None:
                 r.trace = tr.stop()
-            r.trace_ok = check_trace(r, launched, log)
-        r.counts = _counts()
+                if not r.trace.complete:
+                    # the profiler lost the window's device side: trace a
+                    # second window, which alone feeds the per-layer metrics
+                    log(f"trace incomplete {r.trace.raw}: tracing a second "
+                        f"window of {seconds} s")
+                    r.rec.clear()
+                    r.first = len(r.calls)
+                    _reset_counts()
+                    tr = tracer()
+                    tr.start()
+                    launched = launches(cfg)
+                    window()
+                    r.trace = tr.stop()
+                r.trace_ok = check_trace(r, launched, log)
+            r.counts = _counts()
     finally:
         if gclock in gc.callbacks:
             gc.callbacks.remove(gclock)
@@ -254,10 +288,11 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     found = forbidden_modules()
     if found:
         raise ForbiddenImport(found)
-    mem = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
-           else 0)
-    log(f"setup {setup_s:.3f} s: imports {t_import - t_start:.3f}, pool "
-        f"{t_pool - t_import:.3f}, warm-up call {t_warm - t_pool:.3f}")
+    peaks = [torch.cuda.max_memory_allocated(c) for c in cards]
+    log(f"setup {setup_s:.3f} s: imports and the host's facts "
+        f"{t_import - t_start:.3f}, pool "
+        f"{t_pool - t_import:.3f}, warm-up calls ({len(prog_pool)}) "
+        f"{t_warm - t_pool:.3f}")
     for i, (b, t0, t1, recs) in enumerate(r.calls):
         log(f"call {i} batch {b} {(t1 - t0) / 1e9:.4f} s {len(recs)} rows")
     h = len(r.calls) // 2
@@ -270,7 +305,13 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         f"{gclock.s:.4f} s; rss {rss0:.1f} -> {rss1:.1f} MB")
     du = [b - a for a, b in zip(cpu0, cpu1)]
     log(f"cpu in the window: user {du[0]:.2f} s, system {du[1]:.2f} s")
+    for line in usage_lines:
+        log(line)
+    log("host: " + host.facts())
     log(f"counts {r.counts}")
+    if mesh is not None:
+        log(f"mesh {[str(d) for d in mesh]}: memory peaks {peaks}"
+            + (f", busy s {r.trace.busy_by_card()}" if r.trace else ""))
     if r.trace is not None:
         log(f"trace: raw {r.trace.raw}")
         log(f"trace: opening marker {r.trace.start_lag_us} us after the "
@@ -297,7 +338,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
             "windows_per_s": {"value": r.windows / r.call_s,
                               "unit": "windows/s"},
             "setup_s": {"value": setup_s, "unit": "s"}}
-    result["device"] = device_info(dev, mem, r.trace)
+    result["device"] = device_info(dev, peaks, r.trace)
     if r.trace is not None:
         result["breakdown"] = {
             "device_ops": r.trace.top_ops(),
@@ -320,11 +361,15 @@ class ForbiddenImport(RuntimeError):
         self.names = names
 
 
-def device_info(dev, mem: int, trace) -> dict:
+def device_info(dev, peaks: list, trace) -> dict:
+    """The run's cards: their number, the fullest card's memory peak and,
+    over several, each card's peak."""
     import torch
     if dev.type == "cuda":
         info = {"platform": "gpu", "kind": torch.cuda.get_device_name(dev),
-                "count": 1, "memory_peak_bytes": int(mem)}
+                "count": len(peaks), "memory_peak_bytes": int(max(peaks))}
+        if len(peaks) > 1:
+            info["memory_peak_bytes_per_card"] = [int(p) for p in peaks]
     else:
         info = {"platform": "cpu", "kind": "cpu", "count": 1,
                 "memory_peak_bytes": 0}

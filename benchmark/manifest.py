@@ -34,6 +34,18 @@ def config(manifest: dict, name: str, root: str = ROOT) -> dict:
     raise KeyError(f"no config {name!r} in BENCHMARK.json")
 
 
+def cell_config(manifest: dict, name: str, root: str = ROOT):
+    """(cell, its configuration); refuses a cell that asks for fewer chips
+    than its configuration's data mesh (`data_parallel`, default 1)."""
+    c = cell(manifest, name)
+    cfg = config(manifest, c["config"], root)
+    if int(c["chips"]) < int(cfg.get("data_parallel", 1)):
+        raise ValueError(f"{name} asks for {c['chips']} chips, and its "
+                         f"configuration {c['config']} splits over "
+                         f"data_parallel = {cfg['data_parallel']} cards")
+    return c, cfg
+
+
 def traffic(name: str, here: str = HERE) -> dict:
     with open(os.path.join(here, "traffic", name + ".json")) as f:
         return json.load(f)

@@ -1,11 +1,11 @@
 """Host milliseconds a window spends in the fused engine's host parts: the
 program's own spans `fused.plan` (plan_buckets), `fused.arrays`
 (chunk_arrays), `fused.enqueue` (the builds' per-round launches),
-`fused.emit` (emit_window over a chunk) and `fused.fallback` (the host
-engine's windows), both threads, summed over the traced window's calls,
-over the windows completed there.  Not the fetch, which waits for the
-card.  Loading this reader turns the program's span recorder on; nothing
-where the program has none."""
+`fused.emit` (the C++ engine's pk_emit_batch over a chunk) and
+`fused.fallback` (the host engine's windows), both threads, summed over
+the traced window's calls, over the windows completed there.  Not the
+fetch, which waits for the card.  Loading this reader turns the
+program's span recorder on; nothing where the program has none."""
 UNIT, LAYER, BETTER, SOURCE, MOVES = (
     "ms/window", "ops.poa_fused", "lower", "program_span", "windows_per_s")
 SPANS = []

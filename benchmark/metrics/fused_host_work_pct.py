@@ -1,11 +1,11 @@
 """Share of the fused engine's wall in which the card does nothing: 100 x
 (1 - device-busy time inside the spans of `fused_msa_batch` / those
 spans), the busy time from torch.profiler's CUPTI trace.  What is left
-is host work around the device build (plan_buckets, chunk_arrays,
-emit_window, the host engine's fallbacks, counted in
-poa_fused.COUNTS["fallbacks"] on an earlier line) and the host's waits,
-for the interpreter lock among them; the build's kernels and copies are
-not.  Nothing where the trace misses kernels the program launched."""
+is host work around the device build (plan_buckets, chunk_arrays, the
+C++ engine's pk_emit_batch a chunk, the host engine's fallbacks, counted
+in poa_fused.COUNTS["fallbacks"]) and the host's waits, for the
+interpreter lock among them; the build's kernels and copies are not.
+Nothing where the trace misses kernels the program launched."""
 UNIT, LAYER, BETTER, SOURCE, MOVES = (
     "%", "ops.poa_fused", "lower", "device_trace", "windows_per_s")
 SPANS = [

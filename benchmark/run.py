@@ -39,7 +39,11 @@ def main(argv=None) -> int:
     sys.path.insert(0, ROOT)
     from benchmark import harness, manifest
     man = manifest.load_manifest(ROOT)
-    cell = manifest.cell(man, args.workload)
+    try:
+        cell, _cfg = manifest.cell_config(man, args.workload)
+    except ValueError as exc:
+        print(str(exc), file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: this benchmark runs on the card only",

@@ -49,6 +49,8 @@ def test_cell(w):
     manifest.traffic(w["traffic"])
     lim = manifest.limits(w["name"])
     assert set(lim) == {"sample", "rows_differing", "bic_gap"}
+    _c, cfg = manifest.cell_config(MAN, w["name"])
+    assert w["chips"] >= cfg.get("data_parallel", 1)
     e2e = manifest.end_to_end_for(MAN, w["name"])
     assert "setup_s" in [m["name"] for m in e2e] and len(e2e) >= 2
     assert manifest.per_layer_for(MAN, w["name"])

@@ -249,3 +249,130 @@ def test_incomplete_trace_traces_a_second_window():
     assert len(calls) >= 2
     assert res["attempted"] == 8 * len(calls)
     assert "device_idle_pct" in res["metrics"]
+
+
+def one_card_events(seed=7, n=400, card=0):
+    """Markers at 1000 and 61000 us, and `n` kernels and copies of random
+    lengths around them (some before and after the window), all on one
+    card, half of them naming it."""
+    rng = np.random.default_rng(seed)
+    events = [ev(devtrace.MARKER, 1000, 1), ev(devtrace.MARKER, 61000, 1)]
+    names = ["void poa_row::poa_row_kernel<int>(int*)", "pk_prep_kernel",
+             "Memcpy HtoD", "sm80_xmma_gemm"]
+    for i in range(n):
+        k = int(rng.integers(len(names)))
+        e = ev(names[k], float(rng.uniform(0, 62000)),
+               float(rng.uniform(1, 400)),
+               "gpu_memcpy" if k == 2 else "kernel")
+        if i % 2:
+            e["args"] = {"device": card, "stream": 7}
+        events.append(e)
+    return events
+
+
+def spans_run(trace, seed=7):
+    """A run over host 500-60500 us with random spans of the benchmark's
+    wrappers and of the program's recorder."""
+    rng = np.random.default_rng(seed + 1)
+    rec = Recorder()
+
+    def spans(k):
+        a = np.sort(rng.uniform(500_000, 60_000_000, 2 * k)).reshape(k, 2)
+        return [(int(x), int(y), int(rng.integers(2))) for x, y in a]
+    for name in ("_stage_a", "em_cluster_batch_dispatch", "poa_msa_batch",
+                 "fused_msa_batch"):
+        rec.spans[name] = spans(20)
+    rec.io["poa_msa_batch"] = [(([["ACGTACGT", "ACGAACGT"]],), {},
+                                [("ACGTACGT", ["ACGTACGT", "ACGAACGT"])])]
+    records = [(name, a, b) for name in (
+        "poa.chunk.pack", "poa.round.route", "fused.plan", "fused.emit",
+        "mixture.fetch", "localgraph.stage_a_wait") for a, b, _t in spans(15)]
+    return types.SimpleNamespace(
+        rec=rec, windows=64, trace=trace, trace_ok=True, first=0,
+        calls=[(0, 500_000, 30_000_000, []), (1, 30_000_000, 60_500_000, [])],
+        counts={"poa_batch": {"h2d_bytes": 10 ** 6},
+                "poa_fused": {"h2d_bytes": 10 ** 5}},
+        cfg={"dp_kernels": ["poa_row_kernel"]}), records
+
+
+@pytest.mark.parametrize("seed", [7, 8, 9])
+def test_one_card_reads_as_before(seed):
+    """On one card the per-card reduction gives every per-layer metric,
+    and every reading of the trace, exactly as the one-card reduction it
+    replaced, from the same events and spans."""
+    from benchmark.tests.one_card_reduction import Reduced as OneCard
+    events, marks = one_card_events(seed), [500_000, 60_500_000]
+    new, old = devtrace.Reduced(events, marks, [0]), OneCard(events, marks)
+    assert new.complete and old.complete
+    assert (new.window_s, new.offset_us, new.start_lag_us, new.raw) == \
+        (old.window_s, old.offset_us, old.start_lag_us, old.raw)
+    assert new.busy_s() == old.busy_s()
+    assert new.top_ops() == old.top_ops()
+    assert new.count_of(["poa_row_kernel"]) == old.count_of(["poa_row_kernel"])
+    run_new, records = spans_run(new, seed)
+    run_old, _ = spans_run(old, seed)
+    assert new.idle_by_span(run_new.rec.spans) == \
+        old.idle_by_span(run_old.rec.spans)
+    fake = types.SimpleNamespace(records=lambda: records)
+    read = 0
+    for m in manifest.load_manifest()["per_layer"]:
+        mod = manifest.metric_module(m["name"])
+        if hasattr(mod, "TRACE"):
+            mod.TRACE = fake
+        got, want = mod.read(run_new), mod.read(run_old)
+        assert got == want, m["name"]
+        read += got is not None
+    assert read == len(manifest.load_manifest()["per_layer"])
+
+
+def two_card_events():
+    """Both cards' markers at 1000 and 2000 us; card 0 busy 1100-1300,
+    card 1 busy 1200-1600 and 1700-1800."""
+    def on(card, *a, **k):
+        e = ev(*a, **k)
+        e["args"] = {"device": card}
+        return e
+    return [on(0, devtrace.MARKER, 1000, 1), on(1, devtrace.MARKER, 1001, 1),
+            on(0, devtrace.MARKER, 2000, 1), on(1, devtrace.MARKER, 2001, 1),
+            on(0, "void poa_row::poa_row_kernel<int>(int*)", 1100, 200),
+            on(1, "void poa_row::poa_row_kernel<int>(int*)", 1200, 400),
+            on(1, "Memcpy HtoD", 1700, 100, "gpu_memcpy")]
+
+
+def test_cards_read_apart():
+    """Over two cards busy and idle time are each card's, averaged; a
+    kernel's time is summed over the cards; a card without both markers
+    leaves the trace incomplete."""
+    r = devtrace.Reduced(two_card_events(), [500_000, 1_500_000], [0, 1])
+    assert r.complete and r.window_s == pytest.approx(1e-3)
+    assert r.busy_by_card() == {0: pytest.approx(200e-6),
+                                1: pytest.approx(500e-6)}
+    assert r.busy_s() == pytest.approx(350e-6)
+    assert r.time_of(["poa_row_kernel"]) == pytest.approx(600e-6)
+    assert r.count_of(["poa_row_kernel"]) == 2
+    run = types.SimpleNamespace(trace=r, trace_ok=True)
+    idle = manifest.metric_module("device_idle_pct").read(run)
+    assert idle == pytest.approx(100 * ((1 - 0.2) + (1 - 0.5)) / 2)
+    # host 600-1000 us = trace 1100-1500: card 0 busy 200, card 1 300
+    assert r.busy_within([(600_000, 1_000_000)]) == pytest.approx(250e-6)
+    gaps = dict(map(tuple, r.idle_by_span({})))
+    assert gaps["outside spans"] == pytest.approx(1e-3 - 350e-6)
+    lost = [e for e in two_card_events()
+            if not (e["name"] == devtrace.MARKER and e["args"]["device"] == 1
+                    and e["ts"] > 1500)]
+    assert not devtrace.Reduced(lost, [500_000, 1_500_000], [0, 1]).complete
+
+
+def test_roofline_reads_the_same_over_cards():
+    """The same counted work over the same kernel time reads the same
+    share whether one card or two ran the kernels."""
+    one = [ev(devtrace.MARKER, 1000, 1), ev(devtrace.MARKER, 2000, 1),
+           ev("void poa_row::poa_row_kernel<int>(int*)", 1100, 200),
+           ev("void poa_row::poa_row_kernel<int>(int*)", 1300, 400)]
+    two = two_card_events()[:6]
+    reads = []
+    for events, cards in ((one, [0]), (two, [0, 1])):
+        run = fake_run()
+        run.trace = devtrace.Reduced(events, [500_000, 1_500_000], cards)
+        reads.append(manifest.metric_module("poa_dp_roofline").read(run))
+    assert reads[0] == pytest.approx(reads[1])
